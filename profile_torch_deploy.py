@@ -1,0 +1,129 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's integer deploy forward spends its time on the
+card: ResNet-18 ImageNet W2A4, batch 256, 224x224, the state
+chip_smoke.py builds.
+
+    python3 profile_torch_deploy.py
+
+Prints, for the card named by nvidia-smi (name, power limit):
+- ms/batch (CUDA events) of the deploy forward under three plans, timed in
+  turns A B C C B A: 'serving' (SSQ_STEM_KERNEL=1 SSQ_PACKED=1), 'no
+  kernels' (the JAX package's default plan: 1-pass float stem, int8 1x1
+  downsample) and 'exact stem' (SSQ_STEM_1PASS=0, no kernels); and of the
+  port's float forward in bf16 (no quantizers), the JAX bench's baseline;
+- device time of one serving forward by kernel (torch.profiler), grouped
+  into the stem kernel, the packed kernel, integer GEMMs, copies (im2col
+  and layout), and elementwise work (epilogues, requant), and the top 15
+  kernels by name. Writes the full table to chiprun_out/.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import chip_smoke
+
+PLANS = {"serving": {"SSQ_STEM_KERNEL": "1", "SSQ_PACKED": "1",
+                     "SSQ_STEM_1PASS": "0"},
+         "no kernels": {"SSQ_STEM_KERNEL": "0", "SSQ_PACKED": "0",
+                        "SSQ_STEM_1PASS": "1"},
+         "exact stem": {"SSQ_STEM_KERNEL": "0", "SSQ_PACKED": "0",
+                        "SSQ_STEM_1PASS": "0"}}
+GROUPS = (("stem kernel", ("stem_fused_kernel",)),
+          ("packed kernel", ("packed_qmm_kernel",)),
+          ("integer GEMM", ("gemm", "igemm", "cutlass", "xmma", "imma")),
+          ("copies", ("copy", "cat", "Cat", "stack")),
+          ("elementwise", ("elementwise", "vectorized", "reduce",
+                           "Reduce", "pool")))
+
+
+def group_of(name):
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_torch_deploy: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from shiftedscalequantization_tpu_torch import deploy
+    from shiftedscalequantization_tpu_torch.graph import Flags, forward
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    graph, _, params, qstate, dparams, steps = \
+        chip_smoke.serving_setup(torch, gen)
+    x = torch.randn((chip_smoke.BATCH, chip_smoke.HW, chip_smoke.HW, 3),
+                    generator=gen, device="cuda")
+    plans = {}
+    for name, env in PLANS.items():
+        os.environ.update(env)
+        plans[name] = deploy.make_deploy_plan(
+            graph, dparams, steps, input_hw=(chip_smoke.HW,) * 2)
+
+    def fwd(name):
+        return lambda: deploy.deploy_forward(graph, dparams, steps, x,
+                                             plan=plans[name], device="cuda")
+
+    times = {name: [] for name in PLANS}
+    for name in list(PLANS) + list(PLANS)[::-1]:
+        times[name].append(chip_smoke.time_cuda(fwd(name), iters=10,
+                                                warmup=2))
+    params_bf16 = {u: {k: v.to(torch.bfloat16) for k, v in p.items()}
+                   for u, p in params.items()}
+    xb = x.to(torch.bfloat16)
+    bf16_ms = chip_smoke.time_cuda(
+        lambda: forward(graph, params_bf16, qstate, xb, Flags(),
+                        device="cuda"), iters=10, warmup=2)
+
+    from torch.profiler import ProfilerActivity, profile
+    fwd("serving")()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fwd("serving")()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.device_time_total for e in events)
+    if total_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    groups = {}
+    for e in events:
+        g = group_of(e.key)
+        groups[g] = groups.get(g, 0.0) + e.device_time_total / 1e3
+    top = sorted(events, key=lambda e: -e.device_time_total)[:15]
+
+    print(smi)
+    print(f"deploy forward, batch {chip_smoke.BATCH}, ms/batch in turns "
+          f"A B C C B A:")
+    for name, ts in times.items():
+        print(f"  {name:11s} {' '.join(f'{t:.3f}' for t in ts)}")
+    print(f"  bf16 float forward {bf16_ms:.3f}")
+    print(f"device time of one serving forward: {total_us / 1e3:.3f} ms")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {g:14s} {ms:8.3f} ms  {100 * ms * 1e3 / total_us:5.1f}%")
+    for e in top:
+        print(f"  {e.device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
+              f"{e.key[:90]}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/profile_torch_deploy.txt", "w") as f:
+        f.write(prof.key_averages().table(sort_by="device_time_total",
+                                          row_limit=60))
+    print(json.dumps({"device": smi, "deploy_ms": times,
+                      "bf16_forward_ms": bf16_ms,
+                      "serving_device_ms": total_us / 1e3,
+                      "groups_ms": groups}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,671 @@
+"""Deploy-mode (true integer) inference path (PyTorch port of
+``shiftedscalequantization_tpu/deploy.py:39-560, 627-1145``).
+
+Hardened quantizer state is converted offline into centered integer weight
+codes and per-out-channel scales; inference runs integer convolutions with
+a fused dequant epilogue. With centered codes x_c and w_c the fake-quant
+conv is exactly ``dx * dw_oc * conv_int(x_c, w_c)``, so deploy matches the
+sim forward up to float epilogue rounding. Activations travel between
+units as int8 codes (centered, or biased by 128 for 8-bit unsigned sites).
+
+Plan kinds ported: ``stem_fused`` and ``packed`` (hand-written kernels in
+``ops/cuda``), ``int8`` and ``bf16_codes``, ``float`` and ``float_1p``.
+``int8`` and ``bf16_codes`` give the same integers (the JAX bf16 sums are
+exact below 2^24), and both run one exact integer route here: im2col of
+the int8 codes, then ``torch._int_mm`` (int8 x int8 -> int32). No cuDNN
+float conv touches act codes, since TF32 and Winograd would flip them. The
+plan still names the kinds the JAX package would pick for other graphs;
+``int8_bd``, ``int8_pair``, ``dw_int8``, ``float_s2d`` and pair transport
+raise NotImplementedError when reached.
+
+Switches read, with the JAX package's meaning: ``SSQ_STEM_KERNEL``,
+``SSQ_PACKED``, ``SSQ_STEM_1PASS``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+import torch
+
+from ._device import resolve_device
+from .graph import BlockSpec, Graph, OpSpec, UnitQuant, UnitSpec, \
+    _activation, _fp32, conv2d, global_avg_pool, iter_units, max_pool
+from .ops import wquant as W
+from .ops.cuda.packed import pack_codes, packed_quant_matmul
+from .ops.cuda.stem import stem_fused
+
+UNPORTED_KINDS = ("int8_bd", "int8_pair", "dw_int8", "float_s2d")
+# units narrower than this take bf16_codes over int8 (the JAX package's
+# SSQ_THIN_CHANNELS default; the kinds give the same integers here)
+THIN_CHANNELS = 128
+
+
+@dataclasses.dataclass
+class DeployUnit:
+    """Execution-ready unit parameters (weights converted offline)."""
+    w_int: Optional[torch.Tensor]    # int8 centered weight codes (OIHW / OI)
+    w_fp: Optional[torch.Tensor]     # f32 centered codes when |codes| > 127
+    scale: torch.Tensor              # per-OC epilogue scale
+    bias: torch.Tensor               # folded bias
+    # sub-byte packed form (fc / 1x1 convs at W2/W4): raw codes packed
+    # 16/8 per int32, (OC, ceil(K/f)) — ops/cuda/packed.pack_codes
+    w_packed: Optional[torch.Tensor] = None
+    w_pack_zp: Optional[torch.Tensor] = None   # (OC,) weight zero points
+    w_pack_bits: int = 0
+    # the integer route's operand: w_int as (OC, KH*KW*IC) in im2col
+    # order, and its per-OC sum for offset (biased) feeds
+    w_mat: Optional[torch.Tensor] = None
+    w_sum: Optional[torch.Tensor] = None
+
+
+def _hard_weight_codes(wq, w):
+    """(integer codes, zp, per-OC delta) for a hardened weight quantizer."""
+    if isinstance(wq, W.UniformWQ):
+        delta = W._bshape(wq.qp.delta, w)
+        zp = W._bshape(wq.qp.zero_point, w)
+        lo, hi = wq.qp.qrange()
+        codes = torch.clamp(torch.round(w / delta) + zp, lo, hi)
+        return codes, zp, wq.qp.delta
+    raise NotImplementedError(
+        f"deploy conversion for {type(wq).__name__} is not ported")
+
+
+def build_deploy_params(graph: Graph, params, qstate,
+                        output_affine: bool = False,
+                        device="cuda") -> dict:
+    """Convert hardened qstate + folded params into {name: DeployUnit}."""
+    dev = resolve_device(device)
+    out = {}
+    with torch.no_grad():
+        for u in iter_units(graph):
+            uq = qstate[u.name]
+            w = params[u.name]["w"].to(dev)
+            b = params[u.name].get("b")
+            b = torch.zeros((u.out_ch,), dtype=w.dtype, device=dev) \
+                if b is None else b.to(dev)
+            codes, zp, delta_oc = _hard_weight_codes(uq.wq, w)
+            centered = codes - zp
+            scale_oc = delta_oc.reshape(-1)
+            a_out = uq.alpha_out if (output_affine
+                                     and uq.alpha_out is not None) \
+                else torch.ones((u.out_ch,), dtype=w.dtype, device=dev)
+            b_out = uq.beta_out if (output_affine
+                                    and uq.beta_out is not None) \
+                else torch.zeros((u.out_ch,), dtype=w.dtype, device=dev)
+            scale, bias = scale_oc * a_out, b * a_out + b_out
+            if float(centered.abs().max()) > 127:
+                # 8-bit asym head/stem: exact integer codes kept in f32
+                out[u.name] = DeployUnit(w_int=None, w_fp=centered,
+                                         scale=scale, bias=bias)
+                continue
+            w_int = centered.to(torch.int8)
+            w_mat = (w_int.permute(0, 2, 3, 1) if w_int.ndim == 4
+                     else w_int).reshape(u.out_ch, -1).contiguous()
+            du = DeployUnit(w_int=w_int, w_fp=None, scale=scale, bias=bias,
+                            w_mat=w_mat,
+                            w_sum=w_mat.to(torch.int32).sum(dim=1))
+            n_bits_w = uq.wq.qp.n_bits
+            flat_1x1 = (u.kind == "linear"
+                        or (u.kind == "conv" and u.kernel == (1, 1)
+                            and u.groups == 1 and u.padding == (0, 0)))
+            if flat_1x1 and n_bits_w in (2, 4):
+                # raw = codes - qlo maps any clip range onto [0, 2^bits)
+                qlo = min(float(codes.min()), 0.0)
+                raw = (codes - qlo).to(torch.int32).reshape(u.out_ch, -1)
+                if float(raw.max()) < 2 ** n_bits_w:
+                    du = dataclasses.replace(
+                        du, w_packed=pack_codes(raw.T, n_bits_w),
+                        w_pack_zp=(zp.reshape(-1) - qlo).to(torch.float32),
+                        w_pack_bits=n_bits_w)
+            out[u.name] = du
+    return out
+
+
+def act_steps_from_qstate(graph: Graph, qstate) -> dict:
+    """site name -> (delta, zero_point, n_bits) for every calibrated act
+    quantizer (unit sites and block sites)."""
+    steps = {}
+    for name, v in qstate.items():
+        aq = v.aq if isinstance(v, UnitQuant) else v
+        if aq is not None:
+            steps[name] = (aq.delta, aq.zero_point, aq.n_bits)
+    return steps
+
+
+def _scalar_step(st) -> bool:
+    """True when the site's (delta, zp) are scalars."""
+    delta, zp, _ = st
+    return delta.numel() == 1 and zp.numel() == 1
+
+
+def _first(t) -> float:
+    return float(t.reshape(-1)[0])
+
+
+def _site_fits_int8_concrete(st) -> bool:
+    _, zp, n_bits = st
+    if not _scalar_step(st):
+        return False
+    zpv = _first(zp)
+    return ((2 ** n_bits - 1) - zpv <= 127) and (-zpv >= -128)
+
+
+def _chain_sum_sites(graph: Graph, act_steps: dict) -> dict:
+    """Synthetic '<block>__sum__' sites for siteless residual blocks whose
+    operand grids share one scalar step, while the summed centered codes
+    fit int8. Returns {sum_site: (delta, zp0, n_bits)}."""
+    out = {}
+    current = None            # (site_name, centered_bound) of flowing tensor
+
+    def bound_of(site):
+        st = act_steps.get(site)
+        if st is None or not _scalar_step(st):
+            return None
+        _, zp, nb = st
+        zpv = _first(zp)
+        return max(zpv, (2 ** nb - 1) - zpv)
+
+    for node in graph:
+        if isinstance(node, OpSpec):
+            if node.op in ("gap", "avgpool", "flatten"):
+                current = None
+            continue
+        if isinstance(node, UnitSpec):
+            b = bound_of(node.name)
+            current = (node.name, b) if b is not None else None
+            continue
+        entry = current
+        last = node.units[-1].name
+        no_site = act_steps.get(node.name) is None
+        if (node.residual and node.downsample is None
+                and node.post_activation is None and no_site
+                and entry is not None and bound_of(last) is not None):
+            e_site, e_bound = entry
+            d_e = _first((out.get(e_site) or act_steps[e_site])[0])
+            d_l = _first(act_steps[last][0])
+            total = e_bound + bound_of(last)
+            if d_e == d_l and total <= 127:
+                name = f"{node.name}__sum__"
+                out[name] = (act_steps[last][0],
+                             torch.zeros_like(act_steps[last][1]),
+                             act_steps[last][2])
+                current = (name, total)
+                continue
+            current = None
+        elif not node.residual and node.post_activation is None and no_site:
+            b = bound_of(last)
+            current = (last, b) if b is not None else None
+        else:
+            b = bound_of(node.name)
+            current = (node.name, b) if b is not None else None
+    return out
+
+
+def _feeding_sites(graph: Graph, act_steps: dict) -> dict:
+    """For each unit: the act site whose step governs the tensor feeding it
+    (None = unquantized float input, e.g. the raw image)."""
+    feed = {}
+    current = "__input__"
+    for node in graph:
+        if isinstance(node, OpSpec):
+            # maxpool keeps the grid; gap/avgpool leave it
+            if node.op in ("gap", "avgpool"):
+                current = "__offgrid__"
+            continue
+        if isinstance(node, UnitSpec):
+            feed[node.name] = current if current in act_steps else None
+            current = node.name
+            continue
+        if node.downsample is not None:
+            feed[node.downsample.name] = current if current in act_steps \
+                else None
+        prev = current
+        for u in node.units:
+            feed[u.name] = prev if prev in act_steps else None
+            prev = u.name
+        if (not node.residual and node.post_activation is None
+                and node.name not in act_steps):
+            current = prev
+        elif f"{node.name}__sum__" in act_steps \
+                and node.name not in act_steps:
+            current = f"{node.name}__sum__"
+        else:
+            current = node.name
+    return feed
+
+
+def _unit_in_hw(graph: Graph, input_hw) -> dict:
+    """unit name -> input spatial size (downsample units see the block
+    input)."""
+    def conv_out(hw, u):
+        return ((hw[0] + 2 * u.padding[0] - u.kernel[0]) // u.stride[0] + 1,
+                (hw[1] + 2 * u.padding[1] - u.kernel[1]) // u.stride[1] + 1)
+
+    hw = input_hw
+    out = {}
+    for node in graph:
+        if isinstance(node, OpSpec):
+            if node.op == "maxpool":
+                hw = ((hw[0] + 2 * node.padding[0] - node.window[0])
+                      // node.stride[0] + 1,
+                      (hw[1] + 2 * node.padding[1] - node.window[1])
+                      // node.stride[1] + 1)
+            elif node.op in ("gap", "avgpool"):
+                hw = (1, 1)
+            continue
+        if isinstance(node, UnitSpec):
+            out[node.name] = hw
+            if node.kind == "conv":
+                hw = conv_out(hw, node)
+            continue
+        if node.downsample is not None:
+            out[node.downsample.name] = hw
+        for u in node.units:
+            out[u.name] = hw
+            if u.kind == "conv":
+                hw = conv_out(hw, u)
+    return out
+
+
+def make_deploy_plan(graph: Graph, dparams: dict, act_steps: dict,
+                     input_hw=(224, 224)) -> dict:
+    """Static execution plan: unit -> (kind, feeding site), with the kinds
+    the JAX package's make_deploy_plan picks under the same ``SSQ_*``
+    switches (its other switches at their defaults)."""
+    sum_sites = _chain_sum_sites(graph, act_steps)
+    act_steps = {**act_steps, **sum_sites}
+    feed = _feeding_sites(graph, act_steps)
+    int8_sites = frozenset(
+        s for s in act_steps if _site_fits_int8_concrete(act_steps[s])
+    ) | frozenset(sum_sites)
+    # 8-bit unsigned sites (zp == 0): transported as biased (q - 128) int8
+    biased_sites = frozenset(
+        s for s in act_steps
+        if s not in int8_sites and _scalar_step(act_steps[s])
+        and act_steps[s][2] == 8 and _first(act_steps[s][1]) == 0.0)
+    use_stem_kernel = os.environ.get("SSQ_STEM_KERNEL", "0") == "1"
+    use_packed = os.environ.get("SSQ_PACKED", "0") == "1"
+    stem_1pass = os.environ.get("SSQ_STEM_1PASS", "1") != "0"
+    nodes = list(graph)
+    stem_unit = None
+    if use_stem_kernel and len(nodes) >= 2:
+        nd, nxt = nodes[0], nodes[1]
+        if (isinstance(nd, UnitSpec) and nd.kind == "conv"
+                and nd.kernel == (7, 7) and nd.stride == (2, 2)
+                and nd.padding == (3, 3) and nd.groups == 1
+                and nd.in_ch == 3 and nd.activation == "relu"
+                and nd.name in act_steps
+                and (nd.name in int8_sites or nd.name in biased_sites)
+                and isinstance(nxt, OpSpec) and nxt.op == "maxpool"
+                and nxt.window == (3, 3) and nxt.stride == (2, 2)
+                and nxt.padding == (1, 1)):
+            stem_unit = nd.name
+    unit_hw = _unit_in_hw(graph, input_hw)
+    plan = {}
+    for u in iter_units(graph):
+        d = dparams[u.name]
+        site = feed[u.name]
+        kind = "float"
+        thin = min(u.out_ch, u.in_ch // u.groups) < THIN_CHANNELS
+        if (u.kind == "conv" and 1 < u.groups < u.in_ch
+                and site in int8_sites):
+            # the JAX package densifies narrow grouped convs (int8_bd)
+            if d.w_int is not None and u.in_ch <= 128:
+                plan[u.name] = ("int8_bd", site)
+                continue
+            if d.w_int is not None and min(unit_hw[u.name]) >= 14:
+                plan[u.name] = ("int8", site)
+                continue
+        if use_packed and d.w_packed is not None and site in int8_sites:
+            plan[u.name] = ("packed", site)
+            continue
+        if d.w_int is not None and site is not None \
+                and _scalar_step(act_steps[site]):
+            _, zp, n_bits = act_steps[site]
+            zpv = _first(zp)
+            fits_int8 = ((2 ** n_bits - 1) - zpv <= 127) and (-zpv >= -128)
+            fits_bf16 = (2 ** n_bits - 1) <= 256
+            if thin and fits_bf16:
+                kind = "bf16_codes"
+            elif fits_int8:
+                kind = "int8"
+            elif n_bits == 8 and zpv == 0.0:
+                kind = "int8_pair"
+            elif fits_bf16:
+                kind = "bf16_codes"
+        if u.name == stem_unit and kind == "float" and site is None:
+            kind = "stem_fused"
+        if stem_1pass and kind == "float" and u.kind == "conv" \
+                and u.in_ch <= 4:
+            kind = "float_1p"
+        plan[u.name] = (kind, site)
+    plan["__fused_stem__"] = stem_unit
+    plan["__int8_sites__"] = int8_sites
+    plan["__biased_sites__"] = biased_sites
+    plan["__sum_steps__"] = sum_sites
+    return plan
+
+
+def _round_act(x):
+    """Activation-requant rounding: floor(x + 0.5) (round-half-up), as the
+    JAX deploy path rounds."""
+    return torch.floor(x + 0.5)
+
+
+def _quant_centered(x, delta, zp, n_bits):
+    q = torch.clamp(_round_act(x / delta) + zp, 0, 2 ** n_bits - 1)
+    return (q - zp).to(torch.int8)
+
+
+@dataclasses.dataclass
+class _Pending:
+    """A unit's un-applied dequant epilogue: value = acc * scale + bias."""
+    acc: torch.Tensor
+    scale: Optional[torch.Tensor]
+    bias: Optional[torch.Tensor]
+
+
+def _finish_affine(acc, sc, b):
+    y = acc if sc is None else acc * sc
+    return y if b is None else y + b
+
+
+def _im2col(x, kernel, stride, padding, pad_value: int):
+    """(B, H, W, C) int8 -> (B*Ho*Wo, KH*KW*C) patches, (kh, kw, c) order,
+    padded with ``pad_value``."""
+    b, h, w, c = x.shape
+    (kh, kw), (sh, sw), (ph, pw) = kernel, stride, padding
+    ho = (h + 2 * ph - kh) // sh + 1
+    wo = (w + 2 * pw - kw) // sw + 1
+    if (kh, kw, ph, pw) == (1, 1, 0, 0):
+        return x[:, ::sh, ::sw, :].reshape(b * ho * wo, c), (b, ho, wo)
+    xp = x.new_full((b, h + 2 * ph, w + 2 * pw, c), pad_value)
+    xp[:, ph:ph + h, pw:pw + w, :] = x
+    cols = [xp[:, i:i + sh * (ho - 1) + 1:sh, j:j + sw * (wo - 1) + 1:sw, :]
+            for i in range(kh) for j in range(kw)]
+    return torch.stack(cols, dim=3).reshape(b * ho * wo, kh * kw * c), \
+        (b, ho, wo)
+
+
+def _int_mm(a, w_mat):
+    """int8 (M, K) x int8 (N, K)^T -> int32 (M, N) via torch._int_mm, whose
+    CUDA path needs M > 16 and K, N multiples of 8."""
+    m, k = a.shape
+    n = w_mat.shape[0]
+    if not (m > 16 and k % 8 == 0 and n % 8 == 0):
+        raise ValueError(f"integer route needs M > 16 and K, N multiples "
+                         f"of 8; got M={m}, K={k}, N={n}")
+    return torch._int_mm(a.contiguous(), w_mat.t())
+
+
+def _int_acc(spec: UnitSpec, d: DeployUnit, xi, offset: int):
+    """Exact integer conv/linear of int8 feed codes ``xi`` whose centered
+    value is ``xi + offset``: padding carries -offset (centered zero) and
+    the offset's share comes back as offset * sum(w)."""
+    if spec.kind == "conv" and spec.groups != 1:
+        raise NotImplementedError("grouped int8 conv is not ported")
+    if spec.kind == "conv":
+        a, (b, ho, wo) = _im2col(xi, spec.kernel, spec.stride, spec.padding,
+                                 -offset)
+        acc = _int_mm(a, d.w_mat).reshape(b, ho, wo, -1)
+    else:
+        acc = _int_mm(xi, d.w_mat)
+    if offset:
+        acc = acc + offset * d.w_sum
+    return acc
+
+
+def _clip(x, lo, hi):
+    """clip with float or 0-d tensor bounds."""
+    x = torch.maximum(x, lo) if torch.is_tensor(lo) else x.clamp(min=lo)
+    return torch.minimum(x, hi) if torch.is_tensor(hi) else x.clamp(max=hi)
+
+
+def _max_pool_codes(t, window, stride, padding):
+    """NHWC max pool on int8 codes, -128 padding."""
+    b, h, w, c = t.shape
+    (kh, kw), (sh, sw), (ph, pw) = window, stride, padding
+    ho = (h + 2 * ph - kh) // sh + 1
+    wo = (w + 2 * pw - kw) // sw + 1
+    tp = t.new_full((b, h + 2 * ph, w + 2 * pw, c), -128)
+    tp[:, ph:ph + h, pw:pw + w, :] = t
+    out = None
+    for i in range(kh):
+        for j in range(kw):
+            s = tp[:, i:i + sh * (ho - 1) + 1:sh, j:j + sw * (wo - 1) + 1:sw]
+            out = s if out is None else torch.maximum(out, s)
+    return out.contiguous()
+
+
+def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
+                   plan: Optional[dict] = None, device="cuda"):
+    """Integer inference on NHWC input; returns the network output.
+
+    ``act_steps`` from act_steps_from_qstate; ``plan`` from make_deploy_plan
+    (computed here if omitted). Values between nodes are ('codes', int8,
+    site), ('biased', int8, site) or ('f32', tensor, None)."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, device=dev)
+    if plan is None:
+        plan = make_deploy_plan(graph, dparams, act_steps)
+    act_steps = {**act_steps, **plan.get("__sum_steps__", {})}
+    int8_sites = plan["__int8_sites__"]
+    biased_sites = plan.get("__biased_sites__", frozenset())
+    stem_name = plan.get("__fused_stem__")
+    stem_ok = (stem_name is not None and x.ndim == 4
+               and x.shape[1] == x.shape[2] and x.shape[1] % 8 == 0)
+
+    def to_float(v):
+        kind, t, site = v
+        if kind == "f32":
+            return t
+        delta = act_steps[site][0]
+        if kind == "biased":
+            return (t.to(torch.float32) + 128.0) * delta
+        return t.to(torch.float32) * delta
+
+    def materialize(val, act=None):
+        if isinstance(val, tuple):
+            return _activation(act, to_float(val))
+        if isinstance(val, _Pending):
+            return _activation(act, _finish_affine(val.acc, val.scale,
+                                                   val.bias))
+        return _activation(act, val)
+
+    def quantize_out(val, site, act=None, residual=None):
+        """Producer-side epilogue + quantization onto the site grid, fused
+        into one multiply-add in code space: q = clip(floor(acc*M [+ r*Mr]
+        + C + zp), lo, hi), clamp activations folded into the clip."""
+        if isinstance(val, tuple) and residual is None and val[2] == site:
+            return val          # kernel output already on this site's grid
+        st = act_steps.get(site)
+        if st is None:
+            y = materialize(val)
+            if residual is not None:
+                y = y + to_float(residual)
+            return ("f32", _activation(act, y), None)
+        delta, zp, n_bits = st
+        inv = 1.0 / delta
+        if isinstance(val, _Pending):
+            acc = val.acc
+            M = inv if val.scale is None else val.scale * inv
+            C = 0.5 + (0.0 if val.bias is None else val.bias * inv)
+        elif isinstance(val, tuple):
+            kind_v, tv, site_v = val
+            if kind_v == "f32":
+                acc, M, C = tv, inv, 0.5
+            else:
+                acc = tv.to(torch.float32)
+                M, C = act_steps[site_v][0] * inv, 0.5
+                if kind_v == "biased":
+                    C = C + 128.0 * M
+        else:
+            acc, M, C = val, inv, 0.5
+        r, Mr = None, None
+        if residual is not None:
+            kind_r, tr, site_r = residual
+            if kind_r == "f32":
+                r, Mr = tr, inv
+            else:
+                r = tr.to(torch.float32)
+                Mr = act_steps[site_r][0] * inv
+                if kind_r == "biased":
+                    C = C + 128.0 * Mr
+
+        def codes_of(zp0, lo: float, hi: float):
+            a = act
+            if a in ("relu", "relu6"):
+                lo = torch.clamp(zp0, min=lo)            # code(0) == zp
+                if a == "relu6":
+                    hi = torch.clamp(torch.floor(6.0 * inv + 0.5) + zp0,
+                                     max=hi)
+                a = None
+            arg = acc * M + (C + zp0) if r is None \
+                else acc * M + r * Mr + (C + zp0)
+            if a is not None:
+                y = _activation(a, (arg - (0.5 + zp0)) * delta)
+                return _clip(torch.floor(y * inv + 0.5) + zp0, lo, hi)
+            return _clip(torch.floor(arg), lo, hi)
+
+        if site in int8_sites:
+            q = codes_of(zp, 0.0, 2.0 ** n_bits - 1)
+            return ("codes", (q - zp).to(torch.int8), site)
+        if site in biased_sites:
+            q = codes_of(torch.zeros_like(zp), 0.0, 255.0)
+            return ("biased", (q - 128).to(torch.int8), site)
+        q = codes_of(zp, 0.0, 2.0 ** n_bits - 1)
+        return ("f32", (q - zp) * delta, None)
+
+    def int_feed(v, delta, zp, n_bits):
+        """Feed value -> (int8 codes, offset), centered = codes + offset."""
+        vkind, t, _ = v
+        if vkind == "codes":
+            return t, 0
+        if vkind == "biased":
+            return t, 128           # biased sites have zp == 0
+        zpv = int(_first(zp))
+        if -zpv >= -128 and (2 ** n_bits - 1) - zpv <= 127:
+            return _quant_centered(t, delta, zp, n_bits), 0
+        q = torch.clamp(_round_act(t / delta) + zp, 0, 2 ** n_bits - 1)
+        return (q - 128).to(torch.int8), 128 - zpv
+
+    def run_unit(spec: UnitSpec, v):
+        d = dparams[spec.name]
+        kind_plan, feed_site = plan[spec.name]
+        if kind_plan == "stem_fused" and not stem_ok:
+            kind_plan = "float"       # kernel needs square, 8-aligned input
+        if kind_plan in UNPORTED_KINDS:
+            raise NotImplementedError(
+                f"deploy plan kind {kind_plan!r} ({spec.name}) is not ported")
+        if kind_plan == "stem_fused":
+            # conv + relu + quant + maxpool in one kernel; the following
+            # maxpool OpSpec is skipped by the walk below
+            delta, zp, n_bits = act_steps[spec.name]
+            zpv = zp.reshape(-1)[0].to(torch.float32)
+            biased = spec.name in biased_sites
+            coff = torch.full_like(zpv, 128.0) if biased else zpv
+            w_eff = (d.w_int if d.w_int is not None else d.w_fp)
+            codes = stem_fused(to_float(v).contiguous(),
+                               w_eff.to(torch.float32).contiguous(),
+                               d.scale.contiguous(), d.bias.contiguous(),
+                               delta, zpv, 2.0 ** n_bits - 1, coff)
+            return ("biased" if biased else "codes", codes, spec.name)
+        if kind_plan == "packed":
+            # 1x1 convs flatten to (B*H*W, C) rows; stride subsamples first
+            delta, zp, n_bits = act_steps[feed_site]
+            zpv = zp.reshape(-1)[0].to(torch.float32)
+            dv = delta.reshape(-1)[0].to(torch.float32)
+            vkind, t, _ = v
+            if vkind == "codes":
+                # codes are on the grid already: identity requant inside
+                # the kernel (delta 1) and the true step in the epilogue
+                xq, d_in, sc = t.to(torch.float32), 1.0, d.scale * dv
+            else:
+                xq, d_in, sc = to_float(v), dv, d.scale
+            if spec.kind == "conv" and spec.stride != (1, 1):
+                xq = xq[:, ::spec.stride[0], ::spec.stride[1], :]
+            lead = xq.shape[:-1]
+            out = packed_quant_matmul(
+                xq.reshape(-1, xq.shape[-1]).contiguous(), d.w_packed,
+                d.w_pack_zp, sc.contiguous(), d.bias.contiguous(), d_in, zpv,
+                d.w_pack_bits, n_bits)
+            return out.reshape(*lead, -1)
+        if kind_plan in ("int8", "bf16_codes"):
+            delta, zp, n_bits = act_steps[feed_site]
+            xi, offset = int_feed(v, delta, zp, n_bits)
+            acc = _int_acc(spec, d, xi, offset)
+            return _Pending(acc.to(torch.float32), d.scale * delta, d.bias)
+        # float / float_1p: f32 conv with integer-code weights, TF32 off;
+        # float_1p rounds the activation to bf16 first, as the JAX single
+        # bf16 pass does (the weight codes are bf16-exact)
+        xf = materialize(v)
+        if kind_plan == "float_1p":
+            xf = xf.to(torch.bfloat16).to(torch.float32)
+        w_eff = (d.w_int if d.w_int is not None else d.w_fp) \
+            .to(torch.float32)
+        if spec.kind == "conv":
+            out = conv2d(xf, w_eff, None, spec.stride, spec.padding,
+                         spec.groups)
+        else:
+            out = xf @ w_eff.T
+        return _Pending(out, d.scale, d.bias)
+
+    def run_block(node: BlockSpec, v):
+        res_v = None
+        if node.residual:
+            # identity residuals stay codes and fuse into the block-site
+            # requant; downsample residuals materialize their epilogue
+            res_v = ("f32", materialize(run_unit(node.downsample, v),
+                                        node.downsample.activation), None) \
+                if node.downsample is not None else v
+        t = v
+        for u in node.units:
+            t = quantize_out(run_unit(u, t), u.name, u.activation)
+        no_site = act_steps.get(node.name) is None
+        sum_site = f"{node.name}__sum__"
+        if (node.post_activation is None and no_site
+                and sum_site in act_steps and t[0] == "codes"
+                and res_v is not None and res_v[0] == "codes"):
+            # harmonized chain (equal-delta grids): an exact int8 code add
+            return ("codes", t[1] + res_v[1], sum_site)
+        if res_v is None and node.post_activation is None and no_site:
+            return t            # siteless pass-through keeps its codes
+        if (node.post_activation is None and no_site and t[0] == "codes"
+                and res_v[0] == "codes"):
+            raise NotImplementedError(
+                f"pair transport ({node.name}: siteless residual of code "
+                "grids) is not ported")
+        return quantize_out(t, node.name, node.post_activation,
+                            residual=res_v)
+
+    v = ("f32", x, None)
+    pooled_by_stem = False
+    with torch.no_grad(), _fp32():
+        for node in graph:
+            if isinstance(node, OpSpec):
+                kind, t, site = v
+                if node.op == "maxpool" and pooled_by_stem:
+                    pooled_by_stem = False   # the stem kernel pooled
+                elif node.op == "maxpool":
+                    # monotonic: pool codes directly, or floats
+                    if kind in ("codes", "biased"):
+                        v = (kind, _max_pool_codes(t, node.window,
+                                                   node.stride,
+                                                   node.padding), site)
+                    else:
+                        v = (kind, max_pool(t, node.window, node.stride,
+                                            node.padding), site)
+                elif node.op == "gap":
+                    v = ("f32", global_avg_pool(to_float(v)), None)
+                elif node.op == "flatten":
+                    v = ("f32", to_float(v).reshape(t.shape[0], -1), None)
+            elif isinstance(node, UnitSpec):
+                v = quantize_out(run_unit(node, v), node.name,
+                                 node.activation)
+                if node.name == stem_name and stem_ok:
+                    pooled_by_stem = True
+            else:
+                v = run_block(node, v)
+        return to_float(v)

@@ -1,0 +1,24 @@
+"""Model registry (PyTorch port of
+``shiftedscalequantization_tpu/models/zoo.py``). ResNet only in this port
+so far; the other families come with their deploy kernels."""
+from __future__ import annotations
+
+from . import resnet
+from .resnet import init_params  # noqa: F401
+
+
+def build(arch: str, num_classes: int | None = None,
+          dataset: str = "imagenet"):
+    """Returns (graph, torch_key_map_fn); 32x32 datasets take the CIFAR
+    variant."""
+    small = dataset in ("cifar10", "digits", "synth10")
+    nc = num_classes if num_classes is not None else (10 if small else 1000)
+    variant = "cifar" if small else "imagenet"
+    if arch.startswith("resnet"):
+        depth = int(arch.removeprefix("resnet"))
+        g = resnet.build_resnet(depth, num_classes=nc, variant=variant)
+        return g, resnet.torch_key_map
+    raise NotImplementedError(f"arch {arch!r} is not ported yet")
+
+
+ARCHS = ["resnet18", "resnet34", "resnet50", "resnet101", "resnet152"]

@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernels.
+
+One ``nvcc`` call compiles every ``csrc/*.cu`` of the package for ``sm_90a``
+into ``build/torch_kernels/libssq_torch_kernels.so`` at the repository
+root, which ``.gitignore`` lists. The library has a plain C interface and is
+loaded with ``ctypes``: no PyTorch headers, so the build takes seconds. It
+runs at first use and is cached by a hash of the sources and the flags; a
+failed build raises with nvcc's stderr.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+LIB_NAME = "libssq_torch_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argtypes. Every entry returns cudaGetLastError().
+SIGNATURES = {
+    # x, w_packed, w_zp, scale, bias, qp, out, M, K, N, bits, relu, stream
+    "ssq_packed_qmm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, scale, bias, qp, out, B, H, W, OC, stream
+    "ssq_stem_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None      # wall time of this process's build, if it built
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the port's kernels")
+    return path
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Compile the library unless a build of the same sources exists."""
+    global build_seconds
+    sources = _sources()
+    digest = _digest(sources)
+    lib_path = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / "sources.sha256"
+    if lib_path.exists() and stamp.exists() \
+            and stamp.read_text().strip() == digest:
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stderr}")
+    build_seconds = time.perf_counter() - t0
+    os.replace(tmp, lib_path)
+    stamp.write_text(digest)
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.ssq_error_string.argtypes = [ctypes.c_int]
+            lib.ssq_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if err != 0:
+        msg = lib.ssq_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def stream_ptr(t) -> int:
+    """PyTorch's current stream on ``t``'s device, as a pointer."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,172 @@
+"""Uniform-affine quantizer math (PyTorch port of
+``shiftedscalequantization_tpu/ops/quant.py:64-228``).
+
+Rounding is half-to-even (``torch.round``), as ``jnp.round`` is. The MSE
+scale search keeps the reference's 80-point shrink grid, but walks the grid
+in a loop so that a calibration tensor of any size needs one extra copy of
+itself at a time instead of 80.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def round_ste(x: torch.Tensor) -> torch.Tensor:
+    """Round with a straight-through gradient."""
+    return x + (torch.round(x) - x).detach()
+
+
+@dataclasses.dataclass
+class QParams:
+    """Affine quantizer parameters: x_q = clamp(round(x/delta)+zp, lo, hi).
+
+    ``delta``/``zero_point`` broadcast against the quantized tensor (0-d for
+    per-tensor, (OC, 1) for per-channel weights)."""
+    delta: torch.Tensor
+    zero_point: torch.Tensor
+    n_bits: int
+    sym: bool
+
+    @property
+    def n_levels(self) -> int:
+        return 2 ** self.n_bits
+
+    def qrange(self) -> tuple[int, int]:
+        n = self.n_levels
+        return (-(n // 2), n // 2 - 1) if self.sym else (0, n - 1)
+
+
+def fake_quant(x: torch.Tensor, qp: QParams) -> torch.Tensor:
+    """STE fake quantization: clamp(round(x/delta)+zp) dequantized."""
+    lo, hi = qp.qrange()
+    x_int = round_ste(x / qp.delta) + qp.zero_point
+    x_q = torch.clamp(x_int, lo, hi)
+    return (x_q - qp.zero_point) * qp.delta
+
+
+def quantize_int(x: torch.Tensor, qp: QParams, dtype=torch.int8):
+    """True integer quantization: returns int codes."""
+    lo, hi = qp.qrange()
+    x_int = torch.round(x / qp.delta) + qp.zero_point
+    return torch.clamp(x_int, lo, hi).to(dtype)
+
+
+def dequantize(codes: torch.Tensor, qp: QParams) -> torch.Tensor:
+    return (codes.to(qp.delta.dtype) - qp.zero_point) * qp.delta
+
+
+# ---------------------------------------------------------------------------
+# Scale initialization
+# ---------------------------------------------------------------------------
+
+def _quant_with_range(x, new_max, new_min, n_bits):
+    """Quantize x with range [new_min, new_max] (broadcasting)."""
+    n_levels = 2 ** n_bits
+    delta = (new_max - new_min) / (n_levels - 1)
+    delta = torch.where(torch.abs(delta) < 1e-12,
+                        torch.full_like(delta, 1e-12), delta)
+    zero_point = torch.round(-new_min / delta)
+    x_int = torch.round(x / delta)
+    x_q = torch.clamp(x_int + zero_point, 0, n_levels - 1)
+    return (x_q - zero_point) * delta
+
+
+def init_scale_minmax(x: torch.Tensor, n_bits: int, sym: bool,
+                      reduce_dims=None, scale_bits_adjust: bool = False):
+    """'max' scale init. Returns (delta, zero_point, raw_zero_point) reduced
+    over ``reduce_dims`` (None = whole tensor, 0-d results)."""
+    n_levels = 2 ** n_bits
+    if reduce_dims is None:
+        x_min, x_max = x.min(), x.max()
+    else:
+        x_min = x.amin(dim=reduce_dims, keepdim=True)
+        x_max = x.amax(dim=reduce_dims, keepdim=True)
+    x_min = torch.clamp(x_min, max=0.0)
+    x_max = torch.clamp(x_max, min=0.0)
+    if scale_bits_adjust:
+        x_min = x_min * (n_bits + 2) / 8
+        x_max = x_max * (n_bits + 2) / 8
+    if sym:
+        x_absmax = torch.maximum(torch.abs(x_min), x_max)
+        x_min = torch.where(x_min < 0, -x_absmax, torch.zeros_like(x_min))
+        x_max = x_absmax
+    delta = (x_max - x_min) / (n_levels - 1)
+    delta = torch.clamp(delta, min=1e-8)
+    zero_point = torch.round(-x_min / delta)
+    return delta, zero_point, -x_min
+
+
+def _mse_rows(x2d: torch.Tensor, n_bits: int, sym: bool, n_grid: int,
+              p: float):
+    """LAPQ MSE grid search, one independent search per row of ``x2d``.
+
+    Shrinks [x_min, x_max] by i% for i in 0..n_grid-1, quantizes, and keeps
+    the range minimizing the mean L_p error. Returns (delta, zp, raw_zp),
+    each of shape (rows,)."""
+    n_levels = 2 ** n_bits
+    x_max = x2d.amax(dim=1)
+    x_min = x2d.amin(dim=1)
+    if sym:
+        x_absmax = torch.maximum(torch.abs(x_min), x_max)
+        x_min = torch.where(x_min < 0, -x_absmax, torch.zeros_like(x_min))
+        x_max = x_absmax
+    shrink = 1.0 - torch.arange(n_grid, dtype=x2d.dtype,
+                                device=x2d.device) * 0.01
+    scores = torch.empty((n_grid, x2d.shape[0]), dtype=x2d.dtype,
+                         device=x2d.device)
+    for g in range(n_grid):
+        new_max = (x_max * shrink[g])[:, None]
+        new_min = (x_min * shrink[g])[:, None]
+        xq = _quant_with_range(x2d, new_max, new_min, n_bits)
+        scores[g] = (torch.abs(xq - x2d) ** p).mean(dim=1)
+    best = torch.argmin(scores, dim=0)
+    bmax = x_max * shrink[best]
+    bmin = x_min * shrink[best]
+    delta = (bmax - bmin) / (n_levels - 1)
+    delta = torch.where(torch.abs(delta) < 1e-12,
+                        torch.full_like(delta, 1e-12), delta)
+    if sym:
+        return delta, torch.zeros_like(delta), torch.zeros_like(delta)
+    return delta, torch.round(-bmin / delta), -bmin
+
+
+def init_scale_mse(x: torch.Tensor, n_bits: int, sym: bool,
+                   n_grid: int = 80, p: float = 2.4):
+    """MSE grid scale init for a whole tensor. Returns 0-d
+    (delta, zp, raw_zp)."""
+    d, z, r = _mse_rows(x.reshape(1, -1), n_bits, sym, n_grid, p)
+    return d[0], z[0], r[0]
+
+
+def init_weight_qparams(w_oc_flat: torch.Tensor, n_bits: int, sym: bool,
+                        channel_wise: bool, scale_method: str = "mse"):
+    """Weight quantizer init from (OC, -1) weights. Returns (QParams,
+    raw_zero_point) with (OC, 1) params when channel-wise, else 0-d."""
+    adjust = "scale" in scale_method
+    if channel_wise:
+        if scale_method == "mse":
+            delta, zp, raw_zp = _mse_rows(w_oc_flat, n_bits, sym, 80, 2.4)
+        else:
+            delta, zp, raw_zp = init_scale_minmax(
+                w_oc_flat, n_bits, sym, reduce_dims=1,
+                scale_bits_adjust=adjust)
+        delta, zp, raw_zp = (a.reshape(-1, 1) for a in (delta, zp, raw_zp))
+    elif scale_method == "mse":
+        delta, zp, raw_zp = init_scale_mse(w_oc_flat, n_bits, sym)
+    else:
+        delta, zp, raw_zp = init_scale_minmax(
+            w_oc_flat, n_bits, sym, scale_bits_adjust=adjust)
+    return QParams(delta=delta, zero_point=zp, n_bits=n_bits, sym=sym), raw_zp
+
+
+def init_act_qparams(x: torch.Tensor, n_bits: int, sym: bool = False,
+                     scale_method: str = "mse") -> QParams:
+    """Per-tensor activation scale init."""
+    if scale_method == "mse":
+        delta, zp, _ = init_scale_mse(x, n_bits, sym)
+    else:
+        delta, zp, _ = init_scale_minmax(
+            x, n_bits, sym, scale_bits_adjust="scale" in scale_method)
+    return QParams(delta=delta, zero_point=zp, n_bits=n_bits, sym=sym)

@@ -1,0 +1,95 @@
+"""Guards of the PyTorch port: what it imports, and that it never runs on
+the CPU unless asked to."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import shiftedscalequantization_tpu_torch as tp
+from shiftedscalequantization_tpu_torch import deploy as TD
+from shiftedscalequantization_tpu_torch.models import zoo as TZ
+from shiftedscalequantization_tpu_torch.ops.cuda import _build
+from shiftedscalequantization_tpu_torch.utils import jax_import as JI
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "shiftedscalequantization_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "shiftedscalequantization_tpu")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_and_smoke_script_import_no_jax():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 14
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in FORBIDDEN, f"{path.relative_to(ROOT)}: {name}"
+
+
+def test_kernel_sources_and_build_command():
+    """Every csrc/*.cu goes into one nvcc call for sm_90a, loaded with
+    ctypes; the package carries no torch extension build."""
+    srcs = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    assert srcs == ["packed_qmm.cu", "stem_fused.cu"]
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert _build.BUILD_DIR == ROOT / "build" / "torch_kernels"
+    for path in PORT.rglob("*.py"):
+        text = path.read_text()
+        assert "cpp_extension" not in text and "torch.compile" not in text
+    # each C entry point the wrappers call is defined in the sources
+    code = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    for name in list(_build.SIGNATURES) + ["ssq_error_string"]:
+        assert f'extern "C"' in code and f" {name}(" in code, name
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_without_a_card_raise(no_card):
+    graph, _ = TZ.build("resnet18", num_classes=10, dataset="cifar10")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TZ.init_params(graph)
+    raw = TZ.init_params(graph, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tp.prepare_model(graph, raw, tp.QuantConfig())
+    cfg = tp.QuantConfig(w_scale_method="max", a_scale_method="max")
+    params, qs = tp.prepare_model(graph, raw, cfg, device="cpu")
+    x = torch.zeros((2, 32, 32, 3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tp.calibrate_acts(graph, params, qs, x, cfg)
+    qs = tp.calibrate_acts(graph, params, qs, x, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tp.forward(graph, params, qs, x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TD.build_deploy_params(graph, params, qs)
+    dp = TD.build_deploy_params(graph, params, qs, device="cpu")
+    steps = TD.act_steps_from_qstate(graph, qs)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TD.deploy_forward(graph, dp, steps, x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        JI.params_from_numpy({"w": np.zeros(3, np.float32)})
+
+
+def test_unported_weight_quantizer_is_refused():
+    class AdaRoundWQ:      # stands in for a JAX-package quantizer object
+        qp = None
+
+    class Unit:
+        wq = AdaRoundWQ()
+        aq = None
+        alpha_out = beta_out = raw_zp = None
+
+    with pytest.raises(NotImplementedError, match="AdaRoundWQ"):
+        JI.qstate_from_numpy({"u": Unit()}, device="cpu")

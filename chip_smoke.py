@@ -10,21 +10,39 @@ Phases, each printed with its seconds; any failure ends the run with a
 non-zero exit and no result line:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: one nvcc call compiles the port's CUDA sources;
-3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the serving path's shapes (batch 256, 224x224), with CUDA
-   event timings beside the card's bound for the same work;
+2. build: one nvcc process per CUDA source, all started together, and a
+   link into one library;
+3. kernels: the packed and stem kernels against their plain PyTorch
+   versions on the card, at the ResNet-18 serving shapes (batch 256,
+   224x224), with CUDA event timings beside the card's bound;
 4. serving: ResNet-18 ImageNet W2A4 at full width with seeded weights,
    MSE scale init, calibration on 16 images, deploy conversion, and one
    integer deploy forward at batch 256 with the fused stem and packed-W2
    kernels on; the launch counters, reset just before that forward, must
    show both kernels ran;
 5. parity: the fake-quant sim forward on the same batch (TF32 off) against
-   the deploy logits: no NaN, rel-MSE <= 1e-2.
+   the deploy logits: no NaN, rel-MSE <= 1e-2;
+6. mnv2 setup: MobileNetV2 ImageNet (width 1.0) W2A4, set up as in 4, and
+   its plan under SSQ_DW_KERNEL=1 SSQ_PACKED=1, which must hold the JAX
+   package's kinds: 16 dw_int8, 34 packed, 1 bf16_codes, 1 float_1p,
+   1 float;
+7. dw kernel: the depthwise kernel against its plain version, bit-exact,
+   at each distinct shape of the plan's 16 dw units, and timed; the packed
+   kernel likewise at each distinct shape of the plan's 34 packed units;
+8. mbconv kernel: the fused inverted-residual kernel against its plain
+   version, bit-exact, at three MobileNetV2 block shapes (it has no
+   caller on the serving path), and timed;
+9. mnv2 serving: one deploy forward at batch 256 with the counters reset
+   just before it (16 dw and 34 packed launches), its time, and the time
+   of the port's bf16 float forward of the same model;
+10. mnv2 parity: sim (TF32 off) against deploy, no NaN, rel-MSE <= 1e-2;
+   and on 8 images snapped to a 1/8 grid the card's deploy logits against
+   the port's CPU deploy of the same state (the plain versions), rel-MSE
+   <= 1e-8 and the same top-1.
 
-It imports nothing of JAX. Standard output ends with a JSON line of the
-kernels, the nvidia-smi line, the total seconds, and then
-``{"ok": true, "device": {...}}``.
+It imports nothing of JAX. Standard output ends with a JSON line of
+details, a JSON line of the kernels, the nvidia-smi line, the total
+seconds, and then ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -36,6 +54,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS = 67e12                # H100 SXM f32, outside the tensor cores
 INT8_OPS = 1979e12               # H100 SXM int8 tensor cores, dense
 RELMSE_GATE = 1e-2
+CARD_CPU_GATE = 1e-8             # card deploy vs CPU deploy, grid images
+MNV2_KINDS = {"dw_int8": 16, "packed": 34, "bf16_codes": 1, "float_1p": 1,
+              "float": 1}
 BATCH = 256
 HW = 224
 _T0 = time.perf_counter()
@@ -67,12 +88,14 @@ def bound_ms(n_bytes, n_ops, peak_ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_packed(torch, gen, packed):
-    """The three stride-2 downsample 1x1 convs of ResNet-18 at batch 256."""
+def check_packed(torch, gen, packed, shapes=None, iters=20):
+    """Packed kernel vs its plain version at (name, M, K, N) shapes, W2
+    codes; by default the three stride-2 downsample 1x1 convs of ResNet-18
+    at batch 256."""
     rows = []
-    shapes = [("layer2.0.downsample", 200704, 64, 128),
-              ("layer3.0.downsample", 50176, 128, 256),
-              ("layer4.0.downsample", 12544, 256, 512)]
+    shapes = shapes or [("layer2.0.downsample", 200704, 64, 128),
+                        ("layer3.0.downsample", 50176, 128, 256),
+                        ("layer4.0.downsample", 12544, 256, 512)]
     dev = "cuda"
     for name, m, k, n in shapes:
         x = torch.randn((m, k), generator=gen, device=dev)
@@ -91,21 +114,22 @@ def check_packed(torch, gen, packed):
         err = float((got - want).abs().max())
         if not torch.allclose(got, want, rtol=1e-5, atol=1e-4):
             raise AssertionError(f"packed {name}: max abs err {err}")
-        ms = time_cuda(lambda: packed.packed_quant_matmul(*args))
-        plain_ms = time_cuda(lambda: packed.packed_quant_matmul_plain(*args))
+        ms = time_cuda(lambda: packed.packed_quant_matmul(*args), iters)
+        plain_ms = time_cuda(lambda: packed.packed_quant_matmul_plain(*args),
+                             iters)
         xq = (torch.clamp(torch.round(x / delta) + zp, 0, 15) - zp) \
             .to(torch.int8)
         w8 = (raw - w_zp.round().to(torch.int32)).to(torch.int8) \
             .T.contiguous().T
-        lib_ms = time_cuda(lambda: torch._int_mm(xq, w8))
+        lib_ms = time_cuda(lambda: torch._int_mm(xq, w8), iters)
         n_bytes = m * k * 4 + wp.numel() * 4 + 3 * n * 4 + m * n * 4
         b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k, INT8_OPS)
         print(f"  packed {name} M={m} K={k} N={n}: {ms:.4f} ms "
               f"(bound {b_ms:.4f} ms by {b_by}, plain {plain_ms:.4f}, "
               f"_int_mm {lib_ms:.4f}), max abs err {err:.3g}", flush=True)
-        rows.append(dict(shape=(m, k, n), ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                         err=err))
+        rows.append(dict(name=name, shape=(m, k, n), ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by, err=err))
     return rows
 
 
@@ -147,14 +171,15 @@ def check_stem(torch, gen, stem):
     return rows
 
 
-def serving_setup(torch, gen):
-    """ResNet-18 ImageNet W2A4 at full width, seeded weights, all on the
-    card: BN fold + MSE weight scales, act calibration on 16 images, deploy
-    conversion. Returns (graph, cfg, params, qstate, dparams, steps)."""
+def serving_setup(torch, gen, arch="resnet18"):
+    """An ImageNet model (ResNet-18 or MobileNetV2) at W2A4 at full width,
+    seeded weights, all on the card: BN fold + MSE weight scales, act
+    calibration on 16 images, deploy conversion. Returns (graph, cfg,
+    params, qstate, dparams, steps)."""
     from shiftedscalequantization_tpu_torch import deploy
     from shiftedscalequantization_tpu_torch import quantize as Q
     from shiftedscalequantization_tpu_torch.models import zoo
-    graph, _ = zoo.build("resnet18", dataset="imagenet")
+    graph, _ = zoo.build(arch, dataset="imagenet")
     raw = zoo.init_params(graph, seed=0, device="cuda")
     cfg = Q.QuantConfig(n_bits_w=2, n_bits_a=4)
     params, qstate = Q.prepare_model(graph, raw, cfg, device="cuda")
@@ -167,6 +192,142 @@ def serving_setup(torch, gen):
     return graph, cfg, params, qstate, dparams, steps
 
 
+def mnv2_path_shapes(graph, dparams, plan):
+    """The shapes the MobileNetV2 serving plan gives its kernels at batch
+    256: {(H, W, C, stride): count} of the dw_int8 units and
+    {(M, K, N): count} of the packed units."""
+    from shiftedscalequantization_tpu_torch import deploy
+    from shiftedscalequantization_tpu_torch.graph import iter_units
+    hw = deploy._unit_in_hw(graph, (HW, HW))
+    dw, pk = {}, {}
+    for u in iter_units(graph):
+        kind = plan[u.name][0]
+        h, w = hw[u.name]
+        if kind == "dw_int8":
+            key = (h, w, u.in_ch, u.stride[0])
+            dw[key] = dw.get(key, 0) + 1
+        elif kind == "packed":
+            if dparams[u.name].w_pack_bits != 2:
+                raise AssertionError(f"{u.name}: not W2 packed")
+            m = BATCH if u.kind == "linear" else \
+                BATCH * ((h - 1) // u.stride[0] + 1) \
+                * ((w - 1) // u.stride[1] + 1)
+            key = (m, u.in_ch, u.out_ch)
+            pk[key] = pk.get(key, 0) + 1
+    return dw, pk
+
+
+def check_dw(torch, gen, dw, shapes):
+    """dw kernel vs its plain version, bit-exact, at each (H, W, C, stride)
+    of the path at batch 256, 4-bit codes in and out, W2 codes, relu6;
+    beside it cuDNN's bf16 channels-last depthwise conv of the same shape
+    (the conv alone, without the epilogue and requant)."""
+    import torch.nn.functional as F
+    dev = "cuda"
+    rows = []
+    for (h, w, c, stride), count in sorted(shapes.items(), reverse=True):
+        x = torch.randint(-8, 8, (BATCH, h, w, c), generator=gen,
+                          device=dev, dtype=torch.int8)
+        wc = torch.randint(-2, 2, (c, 3, 3), generator=gen, device=dev,
+                           dtype=torch.int8)
+        scalef = torch.rand((c,), generator=gen, device=dev) * 0.05 + 0.001
+        biasf = torch.randn((c,), generator=gen, device=dev) * 0.5
+        args = (x, wc, scalef, biasf, torch.tensor(0.07, device=dev),
+                torch.tensor(7.0, device=dev), 15.0)
+        got = dw.dw_conv3x3_int8(*args, stride=stride, act="relu6")
+        want = dw.dw_conv3x3_int8_plain(*args, stride=stride, act="relu6")
+        torch.cuda.synchronize()
+        err = float((got.int() - want.int()).abs().max())
+        if err != 0:
+            raise AssertionError(f"dw {h}x{w}x{c}/s{stride}: max abs err "
+                                 f"{err} codes")
+        ms = time_cuda(lambda: dw.dw_conv3x3_int8(*args, stride=stride,
+                                                  act="relu6"))
+        plain_ms = time_cuda(lambda: dw.dw_conv3x3_int8_plain(
+            *args, stride=stride, act="relu6"))
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)       # channels_last
+        wb = wc.reshape(c, 1, 3, 3).to(torch.bfloat16) \
+            .contiguous(memory_format=torch.channels_last)
+        conv_ms = time_cuda(lambda: F.conv2d(xb, wb, None, stride, 1, 1, c))
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        n_bytes = BATCH * (h * w + ho * wo) * c + 9 * c + 8 * c + 12
+        b_ms, b_by = bound_ms(n_bytes, 2 * 9 * BATCH * ho * wo * c,
+                              INT8_OPS)
+        print(f"  dw {h}x{w}x{c}/s{stride} (x{count}): {ms:.4f} ms (bound "
+              f"{b_ms:.4f} ms by {b_by}, plain {plain_ms:.4f}, cuDNN bf16 "
+              f"conv alone {conv_ms:.4f}), bit-exact", flush=True)
+        rows.append(dict(shape=(h, w, c, stride), count=count, ms=ms,
+                         plain_ms=plain_ms, conv_alone_ms=conv_ms,
+                         bound_ms=b_ms, bound_by=b_by, err=err))
+    return rows
+
+
+# (name, H, CI, CE, CO, expand, residual) at batch 256
+MBCONV_SHAPES = [("features.3", 56, 24, 144, 24, True, True),
+                 ("features.15", 7, 160, 960, 160, True, True),
+                 ("features.1", 112, 32, 32, 16, False, False)]
+
+
+def check_mbconv(torch, gen, mbconv):
+    """mbconv kernel vs its plain version, bit-exact, at three MobileNetV2
+    block shapes at batch 256: 4-bit block codes, W2 codes, 4-bit stage
+    clips."""
+    dev = "cuda"
+    rows = []
+
+    def codes(*shape):
+        return torch.randint(-2, 2, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def affine_rows(n, lo, hi):
+        return torch.stack([torch.rand((n,), generator=gen, device=dev)
+                            * (hi - lo) + lo,
+                            torch.randn((n,), generator=gen, device=dev)
+                            + 0.5]).contiguous()
+
+    for name, h, ci, ce, co, expand, residual in MBCONV_SHAPES:
+        x = torch.randint(-8, 8, (BATCH, h, h, ci), generator=gen,
+                          device=dev, dtype=torch.int8)
+        args = (x, codes(ci, ce), affine_rows(ce, 0.05, 0.3), codes(9, ce),
+                affine_rows(ce, 0.05, 0.3), codes(ce, co),
+                affine_rows(co, 0.01, 0.1),
+                torch.tensor([15.0, 15.0, 0.7, -8.0, 7.0, 0.0], device=dev))
+        kw = dict(has_expand=expand, has_residual=residual)
+        got = mbconv.mbconv_fused(*args, **kw)
+        want = mbconv.mbconv_fused_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((got.int() - want.int()).abs().max())
+        if err != 0:
+            raise AssertionError(f"mbconv {name}: max abs err {err} codes")
+        ms = time_cuda(lambda: mbconv.mbconv_fused(*args, **kw), iters=10)
+        plain_ms = time_cuda(lambda: mbconv.mbconv_fused_plain(*args, **kw),
+                             iters=5)
+        pix = BATCH * h * h
+        n_ops = 2 * pix * ((ci * ce if expand else 0) + 9 * ce + ce * co)
+        b_ms, b_by = bound_ms(pix * (ci + co), n_ops, INT8_OPS)
+        print(f"  mbconv {name} {h}x{h} {ci}/{ce}/{co}: {ms:.4f} ms (bound "
+              f"{b_ms:.4f} ms by {b_by}, plain {plain_ms:.4f}), bit-exact",
+              flush=True)
+        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, err=err))
+    return rows
+
+
+def logit_rel_mse(torch, got, want):
+    g, w = got.double(), want.double()
+    return float(((g - w) ** 2).mean() / (w ** 2).mean().clamp_min(1e-30))
+
+
+def to_cpu(torch, deploy, dparams, steps):
+    """The deploy state moved to the CPU, for the plain-version deploy."""
+    def unit(d):
+        return deploy.DeployUnit(**{k: (v.cpu() if torch.is_tensor(v)
+                                        else v)
+                                    for k, v in d.__dict__.items()})
+    return ({k: unit(d) for k, d in dparams.items()},
+            {k: (d.cpu(), z.cpu(), n) for k, (d, z, n) in steps.items()})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -176,8 +337,8 @@ def main():
     from shiftedscalequantization_tpu_torch import deploy
     from shiftedscalequantization_tpu_torch import quantize as Q
     from shiftedscalequantization_tpu_torch.graph import Flags, forward
-    from shiftedscalequantization_tpu_torch.ops.cuda import _build, packed, \
-        stem
+    from shiftedscalequantization_tpu_torch.ops.cuda import _build, \
+        depthwise, mbconv, packed, stem
 
     t0 = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -195,6 +356,10 @@ def main():
     built = _build.build_seconds
     print("  nvcc build " + (f"{built:.2f} s" if built is not None
                              else "reused (same sources)"), flush=True)
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print("  ptxas " + line.strip().removeprefix("ptxas info    : "),
+                  flush=True)
     phase("build", t0)
 
     t0 = time.perf_counter()
@@ -253,21 +418,124 @@ def main():
         raise AssertionError(f"parity gate failed: rel-MSE {rel_mse}")
     phase("parity", t0)
 
+    # ---- MobileNetV2 ------------------------------------------------
+    t0 = time.perf_counter()
+    os.environ.update(SSQ_STEM_KERNEL="0", SSQ_PACKED="1", SSQ_DW_KERNEL="1",
+                      SSQ_STEM_1PASS="1")
+    mg, mcfg, mparams, mqstate, mdparams, msteps = serving_setup(
+        torch, gen, "mobilenetv2")
+    mplan = deploy.make_deploy_plan(mg, mdparams, msteps, input_hw=(HW, HW))
+    mkinds = [v[0] for k, v in mplan.items() if not k.startswith("__")]
+    counts = {k: mkinds.count(k) for k in sorted(set(mkinds))}
+    torch.cuda.synchronize()
+    print(f"  setup {time.perf_counter() - t0:.2f} s; plan kinds {counts}",
+          flush=True)
+    if counts != MNV2_KINDS:
+        raise AssertionError(f"MobileNetV2 plan kinds {counts}, want "
+                             f"{MNV2_KINDS}")
+    dw_shapes, pk_shapes = mnv2_path_shapes(mg, mdparams, mplan)
+    phase("mnv2 setup", t0)
+
+    t0 = time.perf_counter()
+    dw_rows = check_dw(torch, gen, depthwise, dw_shapes)
+    if sum(r["count"] for r in dw_rows) != 16 or len(dw_rows) != 9:
+        raise AssertionError(f"dw shapes {dw_shapes}")
+    mpk_rows = check_packed(
+        torch, gen, packed,
+        [(f"mnv2 ({c}x)", m, k, n)
+         for (m, k, n), c in sorted(pk_shapes.items(), reverse=True)],
+        iters=5)
+    for r in mpk_rows:
+        r["count"] = pk_shapes[tuple(r["shape"])]
+    phase("dw kernel", t0)
+
+    t0 = time.perf_counter()
+    mb_rows = check_mbconv(torch, gen, mbconv)
+    phase("mbconv kernel", t0)
+
+    t0 = time.perf_counter()
+    mx = torch.randn((BATCH, HW, HW, 3), generator=gen, device="cuda")
+    depthwise.dw_conv3x3_int8.launches = 0
+    packed.packed_quant_matmul.launches = 0
+    stem.stem_fused.launches = 0
+    mbconv.mbconv_fused.launches = 0
+    mlogits = deploy.deploy_forward(mg, mdparams, msteps, mx, plan=mplan,
+                                    device="cuda")
+    torch.cuda.synchronize()
+    mlaunches = {"dw_conv3x3_int8": depthwise.dw_conv3x3_int8.launches,
+                 "packed_quant_matmul": packed.packed_quant_matmul.launches,
+                 "stem_fused": stem.stem_fused.launches,
+                 "mbconv_fused": mbconv.mbconv_fused.launches}
+    print(f"  launches in one deploy forward: {mlaunches}", flush=True)
+    if mlaunches != {"dw_conv3x3_int8": 16, "packed_quant_matmul": 34,
+                     "stem_fused": 0, "mbconv_fused": 0}:
+        raise AssertionError(f"kernel launches {mlaunches}")
+    if tuple(mlogits.shape) != (BATCH, 1000) \
+            or not bool(torch.isfinite(mlogits).all()):
+        raise AssertionError("deploy logits not finite or misshapen")
+    mdeploy_ms = time_cuda(
+        lambda: deploy.deploy_forward(mg, mdparams, msteps, mx, plan=mplan,
+                                      device="cuda"), iters=5, warmup=1)
+    params_bf16 = {u: {k: v.to(torch.bfloat16) for k, v in p.items()}
+                   for u, p in mparams.items()}
+    mxb = mx.to(torch.bfloat16)
+    mbf16_ms = time_cuda(
+        lambda: forward(mg, params_bf16, mqstate, mxb, Flags(),
+                        device="cuda"), iters=5, warmup=1)
+    print(f"  deploy forward batch {BATCH}: {mdeploy_ms:.3f} ms/batch; "
+          f"bf16 float forward {mbf16_ms:.3f} ms/batch", flush=True)
+    phase("mnv2 serving", t0)
+
+    t0 = time.perf_counter()
+    mflags = Q.act_flags(mg, mcfg, base=Flags().all_weights(mg))
+    msim = forward(mg, mparams, mqstate, mx, mflags, device="cuda")
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(msim).all()):
+        raise AssertionError("sim logits not finite")
+    m_rel = logit_rel_mse(torch, mlogits, msim)
+    m_agree = float((msim.argmax(-1) == mlogits.argmax(-1)).double().mean())
+    print(f"  deploy vs sim: logit rel-MSE {m_rel:.4e} (gate "
+          f"{RELMSE_GATE:g}), top-1 agreement {m_agree:.4f}", flush=True)
+    if not m_rel <= RELMSE_GATE:
+        raise AssertionError(f"parity gate failed: rel-MSE {m_rel}")
+    xg = torch.round(mx[:8] * 8) / 8
+    card = deploy.deploy_forward(mg, mdparams, msteps, xg, plan=mplan,
+                                 device="cuda")
+    cdp, csteps = to_cpu(torch, deploy, mdparams, msteps)
+    host = deploy.deploy_forward(mg, cdp, csteps, xg.cpu(), plan=mplan,
+                                 device="cpu")
+    c_rel = logit_rel_mse(torch, card.cpu(), host)
+    same_top1 = bool(torch.equal(card.cpu().argmax(-1), host.argmax(-1)))
+    print(f"  card vs CPU deploy on 8 grid images: rel-MSE {c_rel:.4e} "
+          f"(gate {CARD_CPU_GATE:g}), same top-1 {same_top1}", flush=True)
+    if not (c_rel <= CARD_CPU_GATE and same_top1):
+        raise AssertionError(f"card vs CPU deploy: rel-MSE {c_rel}, same "
+                             f"top-1 {same_top1}")
+    phase("mnv2 parity", t0)
+
     src = "shiftedscalequantization_tpu_torch/csrc/"
-    # packed: the three downsample shapes summed, the work of one forward
-    per_fwd = {k: sum(r[k] for r in packed_rows)
-               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+
+    def per_forward(rows, key):
+        return sum(r[key] * r.get("count", 1) for r in rows)
+
+    # one row per kernel; times and bounds are the work of one forward of
+    # each path the kernel runs on (packed: ResNet-18 and MobileNetV2)
+    pk_all = packed_rows + mpk_rows
     kernels = [
         {"name": "packed_quant_matmul", "route": "cuda",
          "source": src + "packed_qmm.cu",
          "replaces": "shiftedscalequantization_tpu/ops/pallas/packed.py:55",
-         "launches": launches["packed_quant_matmul"],
-         "max_abs_err": max(r["err"] for r in packed_rows),
-         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
-         "bound_ms": per_fwd["bound_ms"],
-         "bound_by": max(packed_rows, key=lambda r: r["bound_ms"])[
-             "bound_by"],
-         "library_ms": per_fwd["library_ms"]},
+         "launches": launches["packed_quant_matmul"]
+         + mlaunches["packed_quant_matmul"],
+         "launches_by_path": {
+             "resnet18": launches["packed_quant_matmul"],
+             "mobilenetv2": mlaunches["packed_quant_matmul"]},
+         "max_abs_err": max(r["err"] for r in pk_all),
+         "ms": per_forward(pk_all, "ms"),
+         "plain_ms": per_forward(pk_all, "plain_ms"),
+         "bound_ms": per_forward(pk_all, "bound_ms"),
+         "bound_by": max(pk_all, key=lambda r: r["bound_ms"])["bound_by"],
+         "library_ms": per_forward(pk_all, "library_ms")},
         {"name": "stem_fused", "route": "cuda",
          "source": src + "stem_fused.cu",
          "replaces": "shiftedscalequantization_tpu/ops/pallas/stem.py:66",
@@ -276,11 +544,41 @@ def main():
          "ms": stem_rows[0]["ms"], "plain_ms": stem_rows[0]["plain_ms"],
          "bound_ms": stem_rows[0]["bound_ms"],
          "bound_by": stem_rows[0]["bound_by"], "library_ms": None},
+        {"name": "dw_conv3x3_int8", "route": "cuda",
+         "source": src + "dw_conv3x3.cu",
+         "replaces":
+             "shiftedscalequantization_tpu/ops/pallas/depthwise.py:35",
+         "launches": mlaunches["dw_conv3x3_int8"],
+         "max_abs_err": max(r["err"] for r in dw_rows),
+         "ms": per_forward(dw_rows, "ms"),
+         "plain_ms": per_forward(dw_rows, "plain_ms"),
+         "bound_ms": per_forward(dw_rows, "bound_ms"),
+         "bound_by": max(dw_rows, key=lambda r: r["bound_ms"])["bound_by"],
+         "library_ms": None},
+        {"name": "mbconv_fused", "route": "cuda",
+         "source": src + "mbconv_fused.cu",
+         "replaces": "shiftedscalequantization_tpu/ops/pallas/mbconv.py:38",
+         "launches": mlaunches["mbconv_fused"],
+         "max_abs_err": max(r["err"] for r in mb_rows),
+         "ms": per_forward(mb_rows, "ms"),
+         "plain_ms": per_forward(mb_rows, "plain_ms"),
+         "bound_ms": per_forward(mb_rows, "bound_ms"),
+         "bound_by": max(mb_rows, key=lambda r: r["bound_ms"])["bound_by"],
+         "library_ms": None},
     ]
     print(json.dumps({"packed_shapes": packed_rows, "stem": stem_rows,
                       "deploy_ms_per_batch": deploy_ms,
                       "deploy_sim_rel_mse": rel_mse,
-                      "deploy_sim_top1_agreement": agree}), flush=True)
+                      "deploy_sim_top1_agreement": agree,
+                      "mnv2_plan_kinds": counts,
+                      "mnv2_dw_shapes": dw_rows,
+                      "mnv2_packed_shapes": mpk_rows,
+                      "mnv2_mbconv_shapes": mb_rows,
+                      "mnv2_deploy_ms_per_batch": mdeploy_ms,
+                      "mnv2_bf16_forward_ms_per_batch": mbf16_ms,
+                      "mnv2_deploy_sim_rel_mse": m_rel,
+                      "mnv2_deploy_sim_top1_agreement": m_agree,
+                      "mnv2_card_cpu_rel_mse": c_rel}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(f"total {time.perf_counter() - _T0:.2f} s", flush=True)

@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's integer deploy forward spends its time on the
-card: ResNet-18 ImageNet W2A4, batch 256, 224x224, the state
+card: an ImageNet model at W2A4, batch 256, 224x224, the state
 chip_smoke.py builds.
 
-    python3 profile_torch_deploy.py
+    python3 profile_torch_deploy.py [--arch resnet18|mobilenetv2]
 
 Prints, for the card named by nvidia-smi (name, power limit):
 - ms/batch (CUDA events) of the deploy forward under three plans, timed in
-  turns A B C C B A: 'serving' (SSQ_STEM_KERNEL=1 SSQ_PACKED=1), 'no
-  kernels' (the JAX package's default plan: 1-pass float stem, int8 1x1
-  downsample) and 'exact stem' (SSQ_STEM_1PASS=0, no kernels); and of the
-  port's float forward in bf16 (no quantizers), the JAX bench's baseline;
+  turns A B C C B A. ResNet-18: 'serving' (SSQ_STEM_KERNEL=1
+  SSQ_PACKED=1), 'no kernels' (the JAX package's default plan: 1-pass
+  float stem, int8 1x1 downsample) and 'exact stem' (SSQ_STEM_1PASS=0, no
+  kernels). MobileNetV2: 'serving' (SSQ_DW_KERNEL=1 SSQ_PACKED=1), 'dw
+  only' (SSQ_DW_KERNEL=1) and 'no kernels' (the default plan: depthwise
+  units on the plain integer route, 1x1 convs on the integer GEMM or the
+  integer route). And the port's float forward in bf16 (no quantizers),
+  the JAX bench's baseline;
 - device time of one serving forward by kernel (torch.profiler), grouped
-  into the stem kernel, the packed kernel, integer GEMMs, copies (im2col
-  and layout), and elementwise work (epilogues, requant), and the top 15
+  into the port's kernels, integer GEMMs, copies (im2col and layout),
+  and elementwise work (epilogues, requant), and the top 15
   kernels by name. Writes the full table to chiprun_out/.
 """
+import argparse
 import json
 import os
 import subprocess
@@ -23,14 +28,24 @@ import sys
 
 import chip_smoke
 
-PLANS = {"serving": {"SSQ_STEM_KERNEL": "1", "SSQ_PACKED": "1",
-                     "SSQ_STEM_1PASS": "0"},
-         "no kernels": {"SSQ_STEM_KERNEL": "0", "SSQ_PACKED": "0",
-                        "SSQ_STEM_1PASS": "1"},
-         "exact stem": {"SSQ_STEM_KERNEL": "0", "SSQ_PACKED": "0",
-                        "SSQ_STEM_1PASS": "0"}}
+PLANS = {
+    "resnet18": {
+        "serving": {"SSQ_STEM_KERNEL": "1", "SSQ_PACKED": "1",
+                    "SSQ_STEM_1PASS": "0"},
+        "no kernels": {"SSQ_STEM_KERNEL": "0", "SSQ_PACKED": "0",
+                       "SSQ_STEM_1PASS": "1"},
+        "exact stem": {"SSQ_STEM_KERNEL": "0", "SSQ_PACKED": "0",
+                       "SSQ_STEM_1PASS": "0"}},
+    "mobilenetv2": {
+        "serving": {"SSQ_DW_KERNEL": "1", "SSQ_PACKED": "1",
+                    "SSQ_STEM_1PASS": "1"},
+        "dw only": {"SSQ_DW_KERNEL": "1", "SSQ_PACKED": "0",
+                    "SSQ_STEM_1PASS": "1"},
+        "no kernels": {"SSQ_DW_KERNEL": "0", "SSQ_PACKED": "0",
+                       "SSQ_STEM_1PASS": "1"}}}
 GROUPS = (("stem kernel", ("stem_fused_kernel",)),
           ("packed kernel", ("packed_qmm_kernel",)),
+          ("dw kernel", ("dw_conv3x3_kernel",)),
           ("integer GEMM", ("gemm", "igemm", "cutlass", "xmma", "imma")),
           ("copies", ("copy", "cat", "Cat", "stack")),
           ("elementwise", ("elementwise", "vectorized", "reduce",
@@ -45,6 +60,9 @@ def group_of(name):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", choices=sorted(PLANS), default="resnet18")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_deploy: no CUDA device", file=sys.stderr)
@@ -59,11 +77,12 @@ def main():
         timeout=60).stdout.strip().splitlines()[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
     graph, _, params, qstate, dparams, steps = \
-        chip_smoke.serving_setup(torch, gen)
+        chip_smoke.serving_setup(torch, gen, args.arch)
+    plan_envs = PLANS[args.arch]
     x = torch.randn((chip_smoke.BATCH, chip_smoke.HW, chip_smoke.HW, 3),
                     generator=gen, device="cuda")
     plans = {}
-    for name, env in PLANS.items():
+    for name, env in plan_envs.items():
         os.environ.update(env)
         plans[name] = deploy.make_deploy_plan(
             graph, dparams, steps, input_hw=(chip_smoke.HW,) * 2)
@@ -72,8 +91,8 @@ def main():
         return lambda: deploy.deploy_forward(graph, dparams, steps, x,
                                              plan=plans[name], device="cuda")
 
-    times = {name: [] for name in PLANS}
-    for name in list(PLANS) + list(PLANS)[::-1]:
+    times = {name: [] for name in plan_envs}
+    for name in list(plan_envs) + list(plan_envs)[::-1]:
         times[name].append(chip_smoke.time_cuda(fwd(name), iters=10,
                                                 warmup=2))
     params_bf16 = {u: {k: v.to(torch.bfloat16) for k, v in p.items()}
@@ -103,6 +122,11 @@ def main():
     top = sorted(events, key=lambda e: -e.device_time_total)[:15]
 
     print(smi)
+    print(f"{args.arch}: plan kinds {{name: kind counts}}:")
+    for name, plan in plans.items():
+        kinds = [v[0] for k, v in plan.items() if not k.startswith("__")]
+        print(f"  {name:11s} "
+              f"{ {k: kinds.count(k) for k in sorted(set(kinds))} }")
     print(f"deploy forward, batch {chip_smoke.BATCH}, ms/batch in turns "
           f"A B C C B A:")
     for name, ts in times.items():
@@ -116,9 +140,10 @@ def main():
               f"{e.key[:90]}")
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/profile_torch_deploy.txt", "w") as f:
+        f.write(f"{smi}; {args.arch}\n")
         f.write(prof.key_averages().table(sort_by="device_time_total",
                                           row_limit=60))
-    print(json.dumps({"device": smi, "deploy_ms": times,
+    print(json.dumps({"device": smi, "arch": args.arch, "deploy_ms": times,
                       "bf16_forward_ms": bf16_ms,
                       "serving_device_ms": total_us / 1e3,
                       "groups_ms": groups}))

@@ -8,18 +8,20 @@ conv is exactly ``dx * dw_oc * conv_int(x_c, w_c)``, so deploy matches the
 sim forward up to float epilogue rounding. Activations travel between
 units as int8 codes (centered, or biased by 128 for 8-bit unsigned sites).
 
-Plan kinds ported: ``stem_fused`` and ``packed`` (hand-written kernels in
-``ops/cuda``), ``int8`` and ``bf16_codes``, ``float`` and ``float_1p``.
-``int8`` and ``bf16_codes`` give the same integers (the JAX bf16 sums are
-exact below 2^24), and both run one exact integer route here: im2col of
-the int8 codes, then ``torch._int_mm`` (int8 x int8 -> int32). No cuDNN
-float conv touches act codes, since TF32 and Winograd would flip them. The
-plan still names the kinds the JAX package would pick for other graphs;
-``int8_bd``, ``int8_pair``, ``dw_int8``, ``float_s2d`` and pair transport
-raise NotImplementedError when reached.
+Plan kinds ported: ``stem_fused``, ``packed`` and ``dw_int8``
+(hand-written kernels in ``ops/cuda``), ``int8`` and ``bf16_codes``,
+``float`` and ``float_1p``. ``int8`` and ``bf16_codes`` give the same
+integers (the JAX bf16 sums are exact below 2^24), and both run one exact
+integer route here: im2col of the int8 codes, then ``torch._int_mm`` (int8
+x int8 -> int32), or for a depthwise conv nine shifted int32
+multiply-adds. No cuDNN float conv touches act codes, since TF32 and
+Winograd would flip them. The plan still names the kinds the JAX package
+would pick for other graphs; ``int8_bd``, ``int8_pair``, ``float_s2d``,
+other grouped integer convs and pair transport raise NotImplementedError
+when reached.
 
 Switches read, with the JAX package's meaning: ``SSQ_STEM_KERNEL``,
-``SSQ_PACKED``, ``SSQ_STEM_1PASS``.
+``SSQ_PACKED``, ``SSQ_STEM_1PASS``, ``SSQ_DW_KERNEL``.
 """
 from __future__ import annotations
 
@@ -33,10 +35,11 @@ from ._device import resolve_device
 from .graph import BlockSpec, Graph, OpSpec, UnitQuant, UnitSpec, \
     _activation, _fp32, conv2d, global_avg_pool, iter_units, max_pool
 from .ops import wquant as W
+from .ops.cuda.depthwise import dw_conv3x3_int8
 from .ops.cuda.packed import pack_codes, packed_quant_matmul
 from .ops.cuda.stem import stem_fused
 
-UNPORTED_KINDS = ("int8_bd", "int8_pair", "dw_int8", "float_s2d")
+UNPORTED_KINDS = ("int8_bd", "int8_pair", "float_s2d")
 # units narrower than this take bf16_codes over int8 (the JAX package's
 # SSQ_THIN_CHANNELS default; the kinds give the same integers here)
 THIN_CHANNELS = 128
@@ -287,6 +290,7 @@ def make_deploy_plan(graph: Graph, dparams: dict, act_steps: dict,
         and act_steps[s][2] == 8 and _first(act_steps[s][1]) == 0.0)
     use_stem_kernel = os.environ.get("SSQ_STEM_KERNEL", "0") == "1"
     use_packed = os.environ.get("SSQ_PACKED", "0") == "1"
+    use_dw_kernel = os.environ.get("SSQ_DW_KERNEL", "0") == "1"
     stem_1pass = os.environ.get("SSQ_STEM_1PASS", "1") != "0"
     nodes = list(graph)
     stem_unit = None
@@ -318,6 +322,15 @@ def make_deploy_plan(graph: Graph, dparams: dict, act_steps: dict,
             if d.w_int is not None and min(unit_hw[u.name]) >= 14:
                 plan[u.name] = ("int8", site)
                 continue
+        # the depthwise kernel reads and writes centered int8 codes, so
+        # the feed and the unit's own site must both fit int8
+        if (use_dw_kernel and d.w_int is not None and u.kind == "conv"
+                and u.groups == u.in_ch == u.out_ch
+                and u.kernel == (3, 3) and u.padding == (1, 1)
+                and u.stride[0] == u.stride[1] and u.stride[0] in (1, 2)
+                and site in int8_sites and u.name in int8_sites):
+            plan[u.name] = ("dw_int8", site)
+            continue
         if use_packed and d.w_packed is not None and site in int8_sites:
             plan[u.name] = ("packed", site)
             continue
@@ -400,10 +413,33 @@ def _int_mm(a, w_mat):
     return torch._int_mm(a.contiguous(), w_mat.t())
 
 
+def _dw_int_acc(spec: UnitSpec, w_int, xi, offset: int):
+    """Exact depthwise conv of int8 feed codes ``xi`` (centered value
+    ``xi + offset``): nine shifted int32 multiply-adds over the centered
+    codes, zero-padded."""
+    b, h, w, c = xi.shape
+    (kh, kw), (sh, sw), (ph, pw) = spec.kernel, spec.stride, spec.padding
+    ho = (h + 2 * ph - kh) // sh + 1
+    wo = (w + 2 * pw - kw) // sw + 1
+    xp = xi.new_zeros((b, h + 2 * ph, w + 2 * pw, c), dtype=torch.int32)
+    xp[:, ph:ph + h, pw:pw + w, :] = xi.to(torch.int32) + offset
+    wt = w_int.to(torch.int32).reshape(c, kh * kw)
+    acc = None
+    for i in range(kh):
+        for j in range(kw):
+            t = xp[:, i:i + sh * (ho - 1) + 1:sh,
+                   j:j + sw * (wo - 1) + 1:sw, :] * wt[:, i * kw + j]
+            acc = t if acc is None else acc + t
+    return acc
+
+
 def _int_acc(spec: UnitSpec, d: DeployUnit, xi, offset: int):
     """Exact integer conv/linear of int8 feed codes ``xi`` whose centered
     value is ``xi + offset``: padding carries -offset (centered zero) and
     the offset's share comes back as offset * sum(w)."""
+    if spec.kind == "conv" and spec.groups == spec.in_ch == spec.out_ch \
+            and spec.groups > 1:
+        return _dw_int_acc(spec, d.w_int, xi, offset)
     if spec.kind == "conv" and spec.groups != 1:
         raise NotImplementedError("grouped int8 conv is not ported")
     if spec.kind == "conv":
@@ -572,6 +608,21 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
                                d.scale.contiguous(), d.bias.contiguous(),
                                delta, zpv, 2.0 ** n_bits - 1, coff)
             return ("biased" if biased else "codes", codes, spec.name)
+        if kind_plan == "dw_int8":
+            # depthwise conv + epilogue + requant onto the unit's own grid
+            # in one kernel; quantize_out passes its codes through
+            delta, zp, n_bits = act_steps[feed_site]
+            vkind, t, _ = v
+            xi = t if vkind == "codes" \
+                else _quant_centered(to_float(v), delta, zp, n_bits)
+            delta_o, zp_o, n_bits_o = act_steps[spec.name]
+            out = dw_conv3x3_int8(
+                xi.contiguous(), d.w_int.reshape(spec.out_ch, 3, 3),
+                (d.scale * delta).contiguous(), d.bias.contiguous(),
+                delta_o, zp_o.reshape(-1)[0].to(torch.float32),
+                2.0 ** n_bits_o - 1, stride=spec.stride[0],
+                act=spec.activation or "none")
+            return ("codes", out, spec.name)
         if kind_plan == "packed":
             # 1x1 convs flatten to (B*H*W, C) rows; stride subsamples first
             delta, zp, n_bits = act_steps[feed_site]

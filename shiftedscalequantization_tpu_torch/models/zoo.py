@@ -1,9 +1,9 @@
 """Model registry (PyTorch port of
-``shiftedscalequantization_tpu/models/zoo.py``). ResNet only in this port
-so far; the other families come with their deploy kernels."""
+``shiftedscalequantization_tpu/models/zoo.py``). ResNet and MobileNetV2 so
+far; the other families come with their deploy plan kinds."""
 from __future__ import annotations
 
-from . import resnet
+from . import mobilenetv2, resnet
 from .resnet import init_params  # noqa: F401
 
 
@@ -18,7 +18,11 @@ def build(arch: str, num_classes: int | None = None,
         depth = int(arch.removeprefix("resnet"))
         g = resnet.build_resnet(depth, num_classes=nc, variant=variant)
         return g, resnet.torch_key_map
+    if arch == "mobilenetv2":
+        g = mobilenetv2.build_mobilenetv2(num_classes=nc, variant=variant)
+        return g, mobilenetv2.torch_key_map
     raise NotImplementedError(f"arch {arch!r} is not ported yet")
 
 
-ARCHS = ["resnet18", "resnet34", "resnet50", "resnet101", "resnet152"]
+ARCHS = ["resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+         "mobilenetv2"]

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` of the package for ``sm_90a``
-into ``build/torch_kernels/libssq_torch_kernels.so`` at the repository
-root, which ``.gitignore`` lists. The library has a plain C interface and is
-loaded with ``ctypes``: no PyTorch headers, so the build takes seconds. It
-runs at first use and is cached by a hash of the sources and the flags; a
-failed build raises with nvcc's stderr.
+Every ``csrc/*.cu`` of the package is compiled for ``sm_90a`` by its own
+``nvcc`` process, all started together, and one more ``nvcc`` links the
+objects into ``build/torch_kernels/libssq_torch_kernels.so`` at the
+repository root, which ``.gitignore`` lists. The library has a plain C
+interface and is loaded with ``ctypes``: no PyTorch headers, so the build
+takes seconds. It runs at first use and is cached by a hash of the sources
+and the flags; a failed build raises with nvcc's stderr.
 """
 from __future__ import annotations
 
@@ -22,8 +23,9 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_NAME = "libssq_torch_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,11 +35,17 @@ SIGNATURES = {
     "ssq_packed_qmm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, w, scale, bias, qp, out, B, H, W, OC, stream
     "ssq_stem_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w (9, C), scalef, biasf, qp, out, B, H, W, C, stride, act, stream
+    "ssq_dw_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, we, ae, wd, ad, wp, ap, qp, out, B, H, W, CI, CE, CO, has_expand,
+    # has_residual, stream
+    "ssq_mbconv_fused": [_P] * 9 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()
 _lib = None
 build_seconds = None      # wall time of this process's build, if it built
+build_log = ""            # ptxas resource lines (registers, shared memory)
 
 
 def _nvcc() -> str:
@@ -60,9 +68,23 @@ def _digest(sources) -> str:
     return h.hexdigest()
 
 
+def _start(cmd):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc) -> str:
+    """Wait for an nvcc process; its stderr, or raise with it."""
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(proc.args)}\n{err}")
+    return err
+
+
 def build() -> Path:
     """Compile the library unless a build of the same sources exists."""
-    global build_seconds
+    global build_seconds, build_log
     sources = _sources()
     digest = _digest(sources)
     lib_path = BUILD_DIR / LIB_NAME
@@ -71,15 +93,26 @@ def build() -> Path:
             and stamp.read_text().strip() == digest:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}")
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    procs = [_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+             for src, obj in zip(sources, objs)]
+    try:
+        logs = [_finish(proc) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+    _finish(_start([nvcc, *GENCODE, "-shared", "-o", str(tmp),
+                    *map(str, objs)]))
+    for obj in objs:
+        obj.unlink()
     build_seconds = time.perf_counter() - t0
+    build_log = "".join(logs)
     os.replace(tmp, lib_path)
     stamp.write_text(digest)
     return lib_path

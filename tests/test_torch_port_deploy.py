@@ -30,7 +30,8 @@ from shiftedscalequantization_tpu_torch.quantize import act_flags
 from shiftedscalequantization_tpu_torch.utils import jax_import as JI
 
 HW = 64
-SWITCHES = ("SSQ_STEM_KERNEL", "SSQ_PACKED", "SSQ_STEM_1PASS")
+SWITCHES = ("SSQ_STEM_KERNEL", "SSQ_PACKED", "SSQ_STEM_1PASS",
+            "SSQ_DW_KERNEL")
 
 
 def _rel_mse(got, want):

@@ -37,10 +37,12 @@ def test_port_and_smoke_script_import_no_jax():
 
 
 def test_kernel_sources_and_build_command():
-    """Every csrc/*.cu goes into one nvcc call for sm_90a, loaded with
-    ctypes; the package carries no torch extension build."""
+    """Every csrc/*.cu is compiled for sm_90a by its own nvcc process and
+    linked into one library loaded with ctypes; the package carries no
+    torch extension build."""
     srcs = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert srcs == ["packed_qmm.cu", "stem_fused.cu"]
+    assert srcs == ["dw_conv3x3.cu", "mbconv_fused.cu", "packed_qmm.cu",
+                    "stem_fused.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == ROOT / "build" / "torch_kernels"
     for path in PORT.rglob("*.py"):

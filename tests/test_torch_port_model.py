@@ -31,6 +31,17 @@ from shiftedscalequantization_tpu_torch.quantize import \
 from shiftedscalequantization_tpu_torch.utils import jax_import as JI
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs several
+    workers on the same cores, and torch's thread pool then waits on
+    descheduled threads at every small op of the scale searches."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 

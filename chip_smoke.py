@@ -12,14 +12,16 @@ non-zero exit and no result line:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: one nvcc process per CUDA source, all started together, and a
    link into one library;
-3. kernels: the packed and stem kernels against their plain PyTorch
-   versions on the card, at the ResNet-18 serving shapes (batch 256,
-   224x224), with CUDA event timings beside the card's bound;
+3. kernels: the packed, stem and quant_matmul kernels against their plain
+   PyTorch versions on the card, at the ResNet-18 serving shapes (batch
+   256, 224x224; quant_matmul also at a ragged shape), with CUDA event
+   timings beside the card's bound;
 4. serving: ResNet-18 ImageNet W2A4 at full width with seeded weights,
    MSE scale init, calibration on 16 images, deploy conversion, and one
    integer deploy forward at batch 256 with the fused stem and packed-W2
    kernels on; the launch counters, reset just before that forward, must
-   show both kernels ran;
+   show the stem kernel once, the packed kernel 3 times and the int8_conv
+   kernel 16 times;
 5. parity: the fake-quant sim forward on the same batch (TF32 off) against
    the deploy logits: no NaN, rel-MSE <= 1e-2;
 6. mnv2 setup: MobileNetV2 ImageNet (width 1.0) W2A4, set up as in 4, and
@@ -33,12 +35,27 @@ non-zero exit and no result line:
    version, bit-exact, at three MobileNetV2 block shapes (it has no
    caller on the serving path), and timed;
 9. mnv2 serving: one deploy forward at batch 256 with the counters reset
-   just before it (16 dw and 34 packed launches), its time, and the time
-   of the port's bf16 float forward of the same model;
+   just before it (16 dw and 34 packed launches, no int8_conv), its time,
+   and the time of the port's bf16 float forward of the same model;
 10. mnv2 parity: sim (TF32 off) against deploy, no NaN, rel-MSE <= 1e-2;
    and on 8 images snapped to a 1/8 grid the card's deploy logits against
    the port's CPU deploy of the same state (the plain versions), rel-MSE
-   <= 1e-8 and the same top-1.
+   <= 1e-8 and the same top-1;
+11. method setup: ResNet-18 as in 4, its weight quantizers swapped for the
+   method's fused shifted-scale quantizers (targets {1/2, 1}; the 8-bit
+   stem and fc take plain AdaRound) and hardened to the baked form, then
+   converted; the plan under SSQ_STEM_KERNEL=1 SSQ_PACKED=1 must be 1
+   stem_fused, 19 int8/bf16_codes and 1 float;
+12. int8_conv kernel: the implicit-GEMM kernel against its plain version,
+   bit-exact, at every distinct conv shape of that plan, with one weight
+   group (int32 sums) and two (the scale-table sum), timed beside its
+   bound, the im2col + torch._int_mm route it replaced and cuDNN's bf16
+   conv alone (yardsticks only);
+13. method serving: one deploy forward at batch 256 with the counters
+   reset just before it (19 int8_conv, 1 stem, 0 packed launches), its
+   time, and the shift-candidate selection ratios;
+14. method parity: sim against deploy, no NaN, rel-MSE <= 1e-2; card
+   against CPU deploy on 8 grid images, rel-MSE <= 1e-8, same top-1.
 
 It imports nothing of JAX. Standard output ends with a JSON line of
 details, a JSON line of the kernels, the nvidia-smi line, the total
@@ -57,6 +74,7 @@ RELMSE_GATE = 1e-2
 CARD_CPU_GATE = 1e-8             # card deploy vs CPU deploy, grid images
 MNV2_KINDS = {"dw_int8": 16, "packed": 34, "bf16_codes": 1, "float_1p": 1,
               "float": 1}
+SHIFT_TARGETS = (0.5, 1.0)       # the method path's candidate set
 BATCH = 256
 HW = 224
 _T0 = time.perf_counter()
@@ -171,14 +189,68 @@ def check_stem(torch, gen, stem):
     return rows
 
 
-def serving_setup(torch, gen, arch="resnet18"):
+# (name, M, K, N) of quant_matmul's checks: the three stride-2
+# downsample 1x1 convs of ResNet-18 at batch 256, and a ragged shape
+QMM_SHAPES = [("layer2.0.downsample", 200704, 64, 128),
+              ("layer3.0.downsample", 50176, 128, 256),
+              ("layer4.0.downsample", 12544, 256, 512),
+              ("ragged", 50177, 16, 40)]
+
+
+def check_quant_matmul(torch, gen, int_matmul):
+    """quant_matmul vs its plain version (bit-exact: the same division,
+    rounding and step-by-step epilogue), 4-bit acts, W2 codes, ReLU on;
+    beside it torch._int_mm on the pre-quantized int8 operands (the GEMM
+    alone, without the quantization or the epilogue)."""
+    dev = "cuda"
+    rows = []
+    for name, m, k, n in QMM_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=dev)
+        w = torch.randint(-2, 2, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scale = torch.rand((n,), generator=gen, device=dev) * 0.09 + 0.01
+        bias = torch.randn((n,), generator=gen, device=dev)
+        delta = torch.tensor(0.05, device=dev)
+        zp = torch.tensor(7.0, device=dev)
+        args = (x, w, scale, bias, delta, zp, 4, True)
+        got = int_matmul.quant_matmul(*args)
+        want = int_matmul.quant_matmul_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if err != 0:
+            raise AssertionError(f"quant_matmul {name}: max abs err {err}")
+        ms = time_cuda(lambda: int_matmul.quant_matmul(*args))
+        plain_ms = time_cuda(lambda: int_matmul.quant_matmul_plain(*args),
+                             iters=5)
+        xq = (torch.clamp(torch.round(x / delta) + zp, 0, 15) - zp) \
+            .to(torch.int8)
+        # cuBLASLt's int8 GEMM behind torch._int_mm refuses M not a
+        # multiple of 8: no library time for the ragged shape
+        lib_ms = time_cuda(lambda: torch._int_mm(xq, w)) \
+            if m % 8 == 0 else None
+        n_bytes = m * k * 4 + k * n + 2 * n * 4 + m * n * 4
+        b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k, INT8_OPS)
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+        print(f"  quant_matmul {name} M={m} K={k} N={n}: {ms:.4f} ms "
+              f"(bound {b_ms:.4f} ms by {b_by}, plain {plain_ms:.4f}, "
+              f"_int_mm {lib}), max abs err {err:.3g}", flush=True)
+        rows.append(dict(name=name, shape=(m, k, n), ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by, err=err))
+    return rows
+
+
+def serving_setup(torch, gen, arch="resnet18", shifted=False):
     """An ImageNet model (ResNet-18 or MobileNetV2) at W2A4 at full width,
     seeded weights, all on the card: BN fold + MSE weight scales, act
-    calibration on 16 images, deploy conversion. Returns (graph, cfg,
-    params, qstate, dparams, steps)."""
+    calibration on 16 images, and with ``shifted`` the method's fused
+    shifted-scale quantizers (targets SHIFT_TARGETS) hardened as the
+    reconstruction engine hardens them; then deploy conversion. Returns
+    (graph, cfg, params, qstate, dparams, steps)."""
     from shiftedscalequantization_tpu_torch import deploy
     from shiftedscalequantization_tpu_torch import quantize as Q
     from shiftedscalequantization_tpu_torch.models import zoo
+    from shiftedscalequantization_tpu_torch.recon import engine
     graph, _ = zoo.build(arch, dataset="imagenet")
     raw = zoo.init_params(graph, seed=0, device="cuda")
     cfg = Q.QuantConfig(n_bits_w=2, n_bits_a=4)
@@ -186,6 +258,12 @@ def serving_setup(torch, gen, arch="resnet18"):
     calib = torch.randn((16, HW, HW, 3), generator=gen, device="cuda")
     qstate = Q.calibrate_acts(graph, params, qstate, calib, cfg,
                               device="cuda")
+    if shifted:
+        names = Q.unit_order(graph)
+        qstate, _ = engine._init_quantizers(
+            params, qstate, names,
+            engine.ReconSettings(mode="fused", shift_targets=SHIFT_TARGETS))
+        qstate = engine._harden(qstate, names, "fused")
     dparams = deploy.build_deploy_params(graph, params, qstate,
                                          device="cuda")
     steps = deploy.act_steps_from_qstate(graph, qstate)
@@ -313,6 +391,86 @@ def check_mbconv(torch, gen, mbconv):
     return rows
 
 
+def int8_conv_shapes(graph, plan):
+    """{(H, W, C, N, kernel, stride, padding): count} of the dense units
+    a plan sends through int8_conv."""
+    from shiftedscalequantization_tpu_torch import deploy
+    from shiftedscalequantization_tpu_torch.graph import iter_units
+    hw = deploy._unit_in_hw(graph, (HW, HW))
+    shapes = {}
+    for u in iter_units(graph):
+        if plan[u.name][0] in ("int8", "bf16_codes") and u.groups == 1:
+            key = (*hw[u.name], u.in_ch, u.out_ch, u.kernel[0],
+                   u.stride[0], u.padding[0])
+            shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def check_int8_conv(torch, gen, int_matmul, shapes):
+    """int8_conv vs its plain version, bit-exact, at each conv shape of
+    the method path at batch 256: 4-bit codes, W2 codes, one weight group
+    (int32 sums) and two groups masked per input channel with a scale
+    table (f32). Timed beside its bound, the im2col + torch._int_mm route
+    it replaced and cuDNN's bf16 channels-last conv alone (yardsticks)."""
+    import torch.nn.functional as F
+    dev = "cuda"
+    rows = []
+    for key, count in sorted(shapes.items(), reverse=True):
+        h, w, c, n, k, st, p = key
+        geom = ((k, k), (st, st), (p, p))
+        kk = k * k * c
+        x = torch.randint(-8, 8, (BATCH, h, w, c), generator=gen,
+                          device=dev, dtype=torch.int8)
+        w1 = torch.randint(-2, 2, (1, n, kk), generator=gen, device=dev,
+                           dtype=torch.int8)
+        sel = torch.randint(0, 2, (c,), generator=gen, device=dev) \
+            .repeat(k * k)                    # group of each K position
+        w2 = torch.stack([torch.where(sel == s, w1[0], 0) for s in (0, 1)]) \
+            .to(torch.int8).contiguous()
+        table = torch.rand((2, n), generator=gen, device=dev) * 0.02 + 1e-3
+        delta = torch.tensor(0.37, device=dev)
+        one = lambda: int_matmul.int8_conv(x, w1, *geom)  # noqa: E731
+        two = lambda: int_matmul.int8_conv(  # noqa: E731
+            x, w2, *geom, group_scales=table, act_delta=delta)
+        err = 0.0
+        for fn, want in ((one, int_matmul.int8_conv_plain(x, w1, *geom)),
+                         (two, int_matmul.int8_conv_plain(
+                             x, w2, *geom, group_scales=table,
+                             act_delta=delta))):
+            got = fn()
+            torch.cuda.synchronize()
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                err = float((got.double() - want.double()).abs().max())
+                raise AssertionError(f"int8_conv {key}: max abs err {err}")
+        ms1 = time_cuda(one)
+        ms2 = time_cuda(two)
+        plain_ms = time_cuda(lambda: int_matmul.int8_conv_plain(
+            x, w2, *geom, group_scales=table, act_delta=delta), iters=3,
+            warmup=1)
+        mm_ms = time_cuda(lambda: torch._int_mm(
+            int_matmul.im2col(x, *geom, 0)[0], w1[0].t()))
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)      # channels_last
+        wb = w1[0].reshape(n, k, k, c).permute(0, 3, 1, 2) \
+            .to(torch.bfloat16)
+        conv_ms = time_cuda(lambda: F.conv2d(xb, wb, None, st, p))
+        ho, wo = (h + 2 * p - k) // st + 1, (w + 2 * p - k) // st + 1
+        m = BATCH * ho * wo
+        b_ms, b_by = bound_ms(BATCH * h * w * c + 2 * n * kk + 8 * n + 4
+                              + 4 * m * n, 2 * m * n * kk, INT8_OPS)
+        b1_ms, _ = bound_ms(BATCH * h * w * c + n * kk + 4 * m * n,
+                            2 * m * n * kk, INT8_OPS)
+        print(f"  int8_conv {h}x{w}x{c}->{n} k{k}/s{st} (x{count}): S=2 "
+              f"{ms2:.4f} ms, S=1 {ms1:.4f} ms (bound {b_ms:.4f} / "
+              f"{b1_ms:.4f} ms by {b_by}, plain {plain_ms:.4f}, im2col + "
+              f"_int_mm {mm_ms:.4f}, cuDNN bf16 conv alone {conv_ms:.4f}), "
+              f"bit-exact", flush=True)
+        rows.append(dict(shape=key, count=count, ms=ms2, ms_s1=ms1,
+                         plain_ms=plain_ms, im2col_int_mm_ms=mm_ms,
+                         cudnn_bf16_conv_ms=conv_ms, bound_ms=b_ms,
+                         bound_s1_ms=b1_ms, bound_by=b_by, err=err))
+    return rows
+
+
 def logit_rel_mse(torch, got, want):
     g, w = got.double(), want.double()
     return float(((g - w) ** 2).mean() / (w ** 2).mean().clamp_min(1e-30))
@@ -338,7 +496,8 @@ def main():
     from shiftedscalequantization_tpu_torch import quantize as Q
     from shiftedscalequantization_tpu_torch.graph import Flags, forward
     from shiftedscalequantization_tpu_torch.ops.cuda import _build, \
-        depthwise, mbconv, packed, stem
+        depthwise, int_matmul, mbconv, packed, stem
+    from shiftedscalequantization_tpu_torch.recon import engine
 
     t0 = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -366,6 +525,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     packed_rows = check_packed(torch, gen, packed)
     stem_rows = check_stem(torch, gen, stem)
+    qmm_rows = check_quant_matmul(torch, gen, int_matmul)
     phase("kernels", t0)
 
     t0 = time.perf_counter()
@@ -384,13 +544,16 @@ def main():
     x = torch.randn((BATCH, HW, HW, 3), generator=gen, device="cuda")
     stem.stem_fused.launches = 0
     packed.packed_quant_matmul.launches = 0
+    int_matmul.int8_conv.launches = 0
     logits = deploy.deploy_forward(graph, dparams, steps, x, plan=plan,
                                    device="cuda")
     torch.cuda.synchronize()
     launches = {"stem_fused": stem.stem_fused.launches,
-                "packed_quant_matmul": packed.packed_quant_matmul.launches}
+                "packed_quant_matmul": packed.packed_quant_matmul.launches,
+                "int8_conv": int_matmul.int8_conv.launches}
     print(f"  launches in one deploy forward: {launches}", flush=True)
-    if launches != {"stem_fused": 1, "packed_quant_matmul": 3}:
+    if launches != {"stem_fused": 1, "packed_quant_matmul": 3,
+                    "int8_conv": 16}:
         raise AssertionError(f"kernel launches {launches}")
     if tuple(logits.shape) != (BATCH, 1000) \
             or not bool(torch.isfinite(logits).all()):
@@ -459,16 +622,18 @@ def main():
     packed.packed_quant_matmul.launches = 0
     stem.stem_fused.launches = 0
     mbconv.mbconv_fused.launches = 0
+    int_matmul.int8_conv.launches = 0
     mlogits = deploy.deploy_forward(mg, mdparams, msteps, mx, plan=mplan,
                                     device="cuda")
     torch.cuda.synchronize()
     mlaunches = {"dw_conv3x3_int8": depthwise.dw_conv3x3_int8.launches,
                  "packed_quant_matmul": packed.packed_quant_matmul.launches,
                  "stem_fused": stem.stem_fused.launches,
-                 "mbconv_fused": mbconv.mbconv_fused.launches}
+                 "mbconv_fused": mbconv.mbconv_fused.launches,
+                 "int8_conv": int_matmul.int8_conv.launches}
     print(f"  launches in one deploy forward: {mlaunches}", flush=True)
     if mlaunches != {"dw_conv3x3_int8": 16, "packed_quant_matmul": 34,
-                     "stem_fused": 0, "mbconv_fused": 0}:
+                     "stem_fused": 0, "mbconv_fused": 0, "int8_conv": 0}:
         raise AssertionError(f"kernel launches {mlaunches}")
     if tuple(mlogits.shape) != (BATCH, 1000) \
             or not bool(torch.isfinite(mlogits).all()):
@@ -512,6 +677,97 @@ def main():
         raise AssertionError(f"card vs CPU deploy: rel-MSE {c_rel}, same "
                              f"top-1 {same_top1}")
     phase("mnv2 parity", t0)
+
+    # ---- ResNet-18 quantized by the method's fused quantizers ---------
+    t0 = time.perf_counter()
+    os.environ.update(SSQ_STEM_KERNEL="1", SSQ_PACKED="1", SSQ_DW_KERNEL="0",
+                      SSQ_STEM_1PASS="0")
+    sg, scfg, sparams, sqstate, sdparams, ssteps = serving_setup(
+        torch, gen, "resnet18", shifted=True)
+    splan = deploy.make_deploy_plan(sg, sdparams, ssteps, input_hw=(HW, HW))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    skinds = [v[0] for k, v in splan.items() if not k.startswith("__")]
+    scounts = {k: skinds.count(k) for k in sorted(set(skinds))}
+    baked = sum(d.w_groups is not None for d in sdparams.values())
+    print(f"  setup (init, BN fold, MSE scales, calibration, fused "
+          f"shifted-scale init and hardening, deploy conversion) "
+          f"{setup_s:.2f} s; plan kinds {scounts}; {baked} baked units",
+          flush=True)
+    if (scounts.get("stem_fused"), scounts.get("float"),
+            scounts.get("int8", 0) + scounts.get("bf16_codes", 0),
+            len(skinds), baked) != (1, 1, 19, 21, 19):
+        raise AssertionError(f"method plan kinds {scounts}, {baked} baked")
+    conv_shapes = int8_conv_shapes(sg, splan)
+    phase("method setup", t0)
+
+    t0 = time.perf_counter()
+    conv_rows = check_int8_conv(torch, gen, int_matmul, conv_shapes)
+    if sum(r["count"] for r in conv_rows) != 19:
+        raise AssertionError(f"int8_conv shapes {conv_shapes}")
+    phase("int8_conv kernel", t0)
+
+    t0 = time.perf_counter()
+    sx = torch.randn((BATCH, HW, HW, 3), generator=gen, device="cuda")
+    for fn in (stem.stem_fused, packed.packed_quant_matmul,
+               int_matmul.int8_conv, int_matmul.quant_matmul,
+               depthwise.dw_conv3x3_int8, mbconv.mbconv_fused):
+        fn.launches = 0
+    slogits = deploy.deploy_forward(sg, sdparams, ssteps, sx, plan=splan,
+                                    device="cuda")
+    torch.cuda.synchronize()
+    slaunches = {"int8_conv": int_matmul.int8_conv.launches,
+                 "stem_fused": stem.stem_fused.launches,
+                 "packed_quant_matmul": packed.packed_quant_matmul.launches,
+                 "quant_matmul": int_matmul.quant_matmul.launches}
+    print(f"  launches in one deploy forward: {slaunches}", flush=True)
+    if slaunches != {"int8_conv": 19, "stem_fused": 1,
+                     "packed_quant_matmul": 0, "quant_matmul": 0}:
+        raise AssertionError(f"kernel launches {slaunches}")
+    if tuple(slogits.shape) != (BATCH, 1000) \
+            or not bool(torch.isfinite(slogits).all()):
+        raise AssertionError("deploy logits not finite or misshapen")
+    sdeploy_ms = time_cuda(
+        lambda: deploy.deploy_forward(sg, sdparams, ssteps, sx, plan=splan,
+                                      device="cuda"), iters=5, warmup=1)
+    ratios = engine.selection_ratios(sqstate, Q.unit_order(sg))
+    groups = sum(sqstate[n].wq.st_index.numel() for n in ratios)
+    overall = [sum(float(r[i]) * sqstate[n].wq.st_index.numel()
+                   for n, r in ratios.items()) / groups
+               for i in range(len(SHIFT_TARGETS))]
+    print(f"  deploy forward batch {BATCH}: {sdeploy_ms:.3f} ms/batch; "
+          f"selection ratios over {groups} input-channel groups of "
+          f"{len(ratios)} units: " + ", ".join(
+              f"{t:g}: {r:.4f}" for t, r in zip(SHIFT_TARGETS, overall)),
+          flush=True)
+    phase("method serving", t0)
+
+    t0 = time.perf_counter()
+    sflags = Q.act_flags(sg, scfg, base=Flags().all_weights(sg))
+    ssim = forward(sg, sparams, sqstate, sx, sflags, device="cuda")
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(ssim).all()):
+        raise AssertionError("sim logits not finite")
+    s_rel = logit_rel_mse(torch, slogits, ssim)
+    s_agree = float((ssim.argmax(-1) == slogits.argmax(-1)).double().mean())
+    print(f"  deploy vs sim: logit rel-MSE {s_rel:.4e} (gate "
+          f"{RELMSE_GATE:g}), top-1 agreement {s_agree:.4f}", flush=True)
+    if not s_rel <= RELMSE_GATE:
+        raise AssertionError(f"parity gate failed: rel-MSE {s_rel}")
+    sxg = torch.round(sx[:8] * 8) / 8
+    scard = deploy.deploy_forward(sg, sdparams, ssteps, sxg, plan=splan,
+                                  device="cuda")
+    sdp_cpu, ssteps_cpu = to_cpu(torch, deploy, sdparams, ssteps)
+    shost = deploy.deploy_forward(sg, sdp_cpu, ssteps_cpu, sxg.cpu(),
+                                  plan=splan, device="cpu")
+    sc_rel = logit_rel_mse(torch, scard.cpu(), shost)
+    s_same = bool(torch.equal(scard.cpu().argmax(-1), shost.argmax(-1)))
+    print(f"  card vs CPU deploy on 8 grid images: rel-MSE {sc_rel:.4e} "
+          f"(gate {CARD_CPU_GATE:g}), same top-1 {s_same}", flush=True)
+    if not (sc_rel <= CARD_CPU_GATE and s_same):
+        raise AssertionError(f"card vs CPU deploy: rel-MSE {sc_rel}, same "
+                             f"top-1 {s_same}")
+    phase("method parity", t0)
 
     src = "shiftedscalequantization_tpu_torch/csrc/"
 
@@ -565,6 +821,37 @@ def main():
          "bound_ms": per_forward(mb_rows, "bound_ms"),
          "bound_by": max(mb_rows, key=lambda r: r["bound_ms"])["bound_by"],
          "library_ms": None},
+        # quant_matmul has no deploy caller in either package: its times
+        # are those of the three ResNet-18 downsample GEMM shapes
+        {"name": "quant_matmul", "route": "cuda",
+         "source": src + "int_matmul.cu",
+         "replaces":
+             "shiftedscalequantization_tpu/ops/pallas/int_matmul.py:24",
+         "launches": slaunches["quant_matmul"],
+         "max_abs_err": max(r["err"] for r in qmm_rows),
+         "ms": per_forward(qmm_rows[:3], "ms"),
+         "plain_ms": per_forward(qmm_rows[:3], "plain_ms"),
+         "bound_ms": per_forward(qmm_rows[:3], "bound_ms"),
+         "bound_by": max(qmm_rows[:3],
+                         key=lambda r: r["bound_ms"])["bound_by"],
+         "library_ms": per_forward(qmm_rows[:3], "library_ms")},
+        # int8_conv: one method-path forward (19 units, two weight groups)
+        {"name": "int8_conv", "route": "cuda",
+         "source": src + "int_matmul.cu",
+         "replaces":
+             "shiftedscalequantization_tpu/ops/pallas/int_matmul.py:24",
+         "launches": slaunches["int8_conv"] + launches["int8_conv"]
+         + mlaunches["int8_conv"],
+         "launches_by_path": {
+             "resnet18_shifted": slaunches["int8_conv"],
+             "resnet18": launches["int8_conv"],
+             "mobilenetv2": mlaunches["int8_conv"]},
+         "max_abs_err": max(r["err"] for r in conv_rows),
+         "ms": per_forward(conv_rows, "ms"),
+         "plain_ms": per_forward(conv_rows, "plain_ms"),
+         "bound_ms": per_forward(conv_rows, "bound_ms"),
+         "bound_by": max(conv_rows, key=lambda r: r["bound_ms"])["bound_by"],
+         "library_ms": None},
     ]
     print(json.dumps({"packed_shapes": packed_rows, "stem": stem_rows,
                       "deploy_ms_per_batch": deploy_ms,
@@ -578,7 +865,18 @@ def main():
                       "mnv2_bf16_forward_ms_per_batch": mbf16_ms,
                       "mnv2_deploy_sim_rel_mse": m_rel,
                       "mnv2_deploy_sim_top1_agreement": m_agree,
-                      "mnv2_card_cpu_rel_mse": c_rel}), flush=True)
+                      "mnv2_card_cpu_rel_mse": c_rel,
+                      "quant_matmul_shapes": qmm_rows,
+                      "method_setup_s": setup_s,
+                      "method_plan_kinds": scounts,
+                      "method_int8_conv_shapes": conv_rows,
+                      "method_deploy_ms_per_batch": sdeploy_ms,
+                      "method_deploy_sim_rel_mse": s_rel,
+                      "method_deploy_sim_top1_agreement": s_agree,
+                      "method_card_cpu_rel_mse": sc_rel,
+                      "method_selection_ratios": dict(zip(
+                          map(str, SHIFT_TARGETS), overall))}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(f"total {time.perf_counter() - _T0:.2f} s", flush=True)

@@ -3,7 +3,11 @@
 card: an ImageNet model at W2A4, batch 256, 224x224, the state
 chip_smoke.py builds.
 
-    python3 profile_torch_deploy.py [--arch resnet18|mobilenetv2]
+    python3 profile_torch_deploy.py [--arch resnet18|mobilenetv2] [--shifted]
+
+``--shifted`` (ResNet-18) serves the model quantized by the method's
+fused shifted-scale quantizers, hardened to the baked scale-table form,
+as chip_smoke.py's method path does.
 
 Prints, for the card named by nvidia-smi (name, power limit):
 - ms/batch (CUDA events) of the deploy forward under three plans, timed in
@@ -43,7 +47,8 @@ PLANS = {
                     "SSQ_STEM_1PASS": "1"},
         "no kernels": {"SSQ_DW_KERNEL": "0", "SSQ_PACKED": "0",
                        "SSQ_STEM_1PASS": "1"}}}
-GROUPS = (("stem kernel", ("stem_fused_kernel",)),
+GROUPS = (("int8_conv kernel", ("int8_gemm_kernel",)),
+          ("stem kernel", ("stem_fused_kernel",)),
           ("packed kernel", ("packed_qmm_kernel",)),
           ("dw kernel", ("dw_conv3x3_kernel",)),
           ("integer GEMM", ("gemm", "igemm", "cutlass", "xmma", "imma")),
@@ -62,7 +67,11 @@ def group_of(name):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=sorted(PLANS), default="resnet18")
+    ap.add_argument("--shifted", action="store_true",
+                    help="ResNet-18 quantized by the method (baked state)")
     args = ap.parse_args()
+    if args.shifted and args.arch != "resnet18":
+        ap.error("--shifted serves ResNet-18 only")
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_deploy: no CUDA device", file=sys.stderr)
@@ -77,7 +86,8 @@ def main():
         timeout=60).stdout.strip().splitlines()[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
     graph, _, params, qstate, dparams, steps = \
-        chip_smoke.serving_setup(torch, gen, args.arch)
+        chip_smoke.serving_setup(torch, gen, args.arch,
+                                 shifted=args.shifted)
     plan_envs = PLANS[args.arch]
     x = torch.randn((chip_smoke.BATCH, chip_smoke.HW, chip_smoke.HW, 3),
                     generator=gen, device="cuda")
@@ -122,7 +132,8 @@ def main():
     top = sorted(events, key=lambda e: -e.device_time_total)[:15]
 
     print(smi)
-    print(f"{args.arch}: plan kinds {{name: kind counts}}:")
+    label = args.arch + (" (shifted)" if args.shifted else "")
+    print(f"{label}: plan kinds {{name: kind counts}}:")
     for name, plan in plans.items():
         kinds = [v[0] for k, v in plan.items() if not k.startswith("__")]
         print(f"  {name:11s} "
@@ -139,11 +150,13 @@ def main():
         print(f"  {e.device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
               f"{e.key[:90]}")
     os.makedirs("chiprun_out", exist_ok=True)
-    with open("chiprun_out/profile_torch_deploy.txt", "w") as f:
-        f.write(f"{smi}; {args.arch}\n")
+    out = "chiprun_out/profile_torch_deploy_" \
+        + label.replace(" (shifted)", "_shifted") + ".txt"
+    with open(out, "w") as f:
+        f.write(f"{smi}; {label}\n")
         f.write(prof.key_averages().table(sort_by="device_time_total",
                                           row_limit=60))
-    print(json.dumps({"device": smi, "arch": args.arch, "deploy_ms": times,
+    print(json.dumps({"device": smi, "arch": label, "deploy_ms": times,
                       "bf16_forward_ms": bf16_ms,
                       "serving_device_ms": total_us / 1e3,
                       "groups_ms": groups}))

@@ -8,12 +8,20 @@ conv is exactly ``dx * dw_oc * conv_int(x_c, w_c)``, so deploy matches the
 sim forward up to float epilogue rounding. Activations travel between
 units as int8 codes (centered, or biased by 128 for 8-bit unsigned sites).
 
+Weight quantizers converted: ``UniformWQ``, hard ``AdaRoundWQ`` (with
+baked shifts: ``st_index`` into ``shift_targets``) and the fused
+``ShiftedScaleWQ`` (``codes=True``). A baked unit keeps its codes split
+into one masked int8 tensor per shift candidate (``w_groups``) with a
+per-(candidate, OC) scale table (``group_scales``):
+``out = 0 + sum_s conv_int(x, w_groups[s]) * (group_scales[s] * dx)``.
+
 Plan kinds ported: ``stem_fused``, ``packed`` and ``dw_int8``
 (hand-written kernels in ``ops/cuda``), ``int8`` and ``bf16_codes``,
 ``float`` and ``float_1p``. ``int8`` and ``bf16_codes`` give the same
 integers (the JAX bf16 sums are exact below 2^24), and both run one exact
-integer route here: im2col of the int8 codes, then ``torch._int_mm`` (int8
-x int8 -> int32), or for a depthwise conv nine shifted int32
+integer route here: a dense conv or linear unit goes through
+``ops/cuda/int_matmul.int8_conv`` (the implicit-GEMM kernel on the card,
+its plain version on the CPU), a depthwise conv through nine shifted int32
 multiply-adds. No cuDNN float conv touches act codes, since TF32 and
 Winograd would flip them. The plan still names the kinds the JAX package
 would pick for other graphs; ``int8_bd``, ``int8_pair``, ``float_s2d``,
@@ -30,12 +38,14 @@ import os
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ._device import resolve_device
 from .graph import BlockSpec, Graph, OpSpec, UnitQuant, UnitSpec, \
     _activation, _fp32, conv2d, global_avg_pool, iter_units, max_pool
 from .ops import wquant as W
 from .ops.cuda.depthwise import dw_conv3x3_int8
+from .ops.cuda.int_matmul import int8_conv
 from .ops.cuda.packed import pack_codes, packed_quant_matmul
 from .ops.cuda.stem import stem_fused
 
@@ -52,13 +62,18 @@ class DeployUnit:
     w_fp: Optional[torch.Tensor]     # f32 centered codes when |codes| > 127
     scale: torch.Tensor              # per-OC epilogue scale
     bias: torch.Tensor               # folded bias
+    # baked-shift units: codes split into |S| IC/pair-masked groups, each
+    # with its own per-OC scale (the per-(candidate, OC) scale table)
+    w_groups: Optional[torch.Tensor] = None       # (S, OC, ...) int8
+    group_scales: Optional[torch.Tensor] = None   # (S, OC) f32
     # sub-byte packed form (fc / 1x1 convs at W2/W4): raw codes packed
     # 16/8 per int32, (OC, ceil(K/f)) — ops/cuda/packed.pack_codes
     w_packed: Optional[torch.Tensor] = None
     w_pack_zp: Optional[torch.Tensor] = None   # (OC,) weight zero points
     w_pack_bits: int = 0
-    # the integer route's operand: w_int as (OC, KH*KW*IC) in im2col
-    # order, and its per-OC sum for offset (biased) feeds
+    # int8_conv's operand: w_int (or each of w_groups) as
+    # (S, OC, KH*KW*IC) in (kh, kw, ic) order, S = 1 without groups, and
+    # its (S, OC) int32 sums for offset (biased) feeds
     w_mat: Optional[torch.Tensor] = None
     w_sum: Optional[torch.Tensor] = None
 
@@ -71,8 +86,42 @@ def _hard_weight_codes(wq, w):
         lo, hi = wq.qp.qrange()
         codes = torch.clamp(torch.round(w / delta) + zp, lo, hi)
         return codes, zp, wq.qp.delta
+    if isinstance(wq, W.AdaRoundWQ):
+        # codes on the effective (baked) grid; the base per-OC delta goes
+        # to the epilogue, the shifts to the scale table
+        delta = wq._delta(w)
+        zp = W._bshape(wq.qp.zero_point, w)
+        x_int = torch.floor(w / delta) + (wq.alpha >= 0).to(w.dtype)
+        lo, hi = wq._clip_range()
+        return torch.clamp(x_int + zp, lo, hi), zp, wq.qp.delta
+    if isinstance(wq, W.ShiftedScaleWQ) and wq.codes:
+        # fused path: hard-selected floor codes + hard round, dequantized at
+        # the base per-OC delta -> a plain int tensor
+        zp = W._bshape(wq.qp.zero_point, w)
+        onehot = F.one_hot(torch.argmax(wq.soft_targets(), dim=-1),
+                           len(wq.shift_targets)).to(w.dtype)
+        x_int = W._mix(wq.x_q, onehot) + (wq.beta >= 0).to(w.dtype)
+        lo, hi = wq.qp.qrange()
+        return torch.clamp(x_int + zp, lo, hi), zp, wq.qp.delta
     raise NotImplementedError(
-        f"deploy conversion for {type(wq).__name__} is not ported")
+        f"deploy conversion for {type(wq).__name__} (two-phase "
+        "dequant-shifted state needs the per-(oc,ic) scale-table epilogue)")
+
+
+def _gemm_operand(w_int: torch.Tensor) -> torch.Tensor:
+    """(S, OC, IC[, KH, KW]) int8 -> (S, OC, KH*KW*IC), (kh, kw, ic)
+    order: int8_conv's weight operand."""
+    if w_int.ndim == 5:
+        w_int = w_int.permute(0, 1, 3, 4, 2)
+    return w_int.reshape(w_int.shape[0], w_int.shape[1], -1).contiguous()
+
+
+def _st_per_weight(wq, w: torch.Tensor) -> torch.Tensor:
+    """The baked unit's shift-candidate index, broadcast to w's shape."""
+    idx = wq.st_index
+    if idx.ndim == 1 and w.ndim == 4:          # conv: per input channel
+        idx = idx.reshape(1, -1, 1, 1)
+    return idx.expand(w.shape)
 
 
 def build_deploy_params(graph: Graph, params, qstate,
@@ -98,17 +147,39 @@ def build_deploy_params(graph: Graph, params, qstate,
                                     and uq.beta_out is not None) \
                 else torch.zeros((u.out_ch,), dtype=w.dtype, device=dev)
             scale, bias = scale_oc * a_out, b * a_out + b_out
+            baked = (isinstance(uq.wq, W.AdaRoundWQ)
+                     and uq.wq.st_index is not None)
             if float(centered.abs().max()) > 127:
-                # 8-bit asym head/stem: exact integer codes kept in f32
-                out[u.name] = DeployUnit(w_int=None, w_fp=centered,
+                # 8-bit asym head/stem: exact integer codes kept in f32; a
+                # baked unit folds its shifts into them
+                w_fp = centered
+                if baked:
+                    sts = W._targets(uq.wq.shift_targets, w)
+                    w_fp = centered * sts[_st_per_weight(uq.wq, w)]
+                out[u.name] = DeployUnit(w_int=None, w_fp=w_fp,
                                          scale=scale, bias=bias)
                 continue
             w_int = centered.to(torch.int8)
-            w_mat = (w_int.permute(0, 2, 3, 1) if w_int.ndim == 4
-                     else w_int).reshape(u.out_ch, -1).contiguous()
+            if baked:
+                # grouped scale-table form: codes masked per shift candidate
+                idx = _st_per_weight(uq.wq, w)
+                sts = uq.wq.shift_targets
+                groups = torch.stack([
+                    torch.where(idx == s, centered,
+                                torch.zeros_like(centered)).to(torch.int8)
+                    for s in range(len(sts))])
+                gscales = torch.stack([scale_oc * float(st) * a_out
+                                       for st in sts])
+                w_mat = _gemm_operand(groups)
+                out[u.name] = DeployUnit(
+                    w_int=w_int, w_fp=None, scale=scale, bias=bias,
+                    w_groups=groups, group_scales=gscales, w_mat=w_mat,
+                    w_sum=w_mat.sum(dim=2, dtype=torch.int32))
+                continue
+            w_mat = _gemm_operand(w_int[None])
             du = DeployUnit(w_int=w_int, w_fp=None, scale=scale, bias=bias,
                             w_mat=w_mat,
-                            w_sum=w_mat.to(torch.int32).sum(dim=1))
+                            w_sum=w_mat.sum(dim=2, dtype=torch.int32))
             n_bits_w = uq.wq.qp.n_bits
             flat_1x1 = (u.kind == "linear"
                         or (u.kind == "conv" and u.kernel == (1, 1)
@@ -315,8 +386,10 @@ def make_deploy_plan(graph: Graph, dparams: dict, act_steps: dict,
         thin = min(u.out_ch, u.in_ch // u.groups) < THIN_CHANNELS
         if (u.kind == "conv" and 1 < u.groups < u.in_ch
                 and site in int8_sites):
-            # the JAX package densifies narrow grouped convs (int8_bd)
-            if d.w_int is not None and u.in_ch <= 128:
+            # the JAX package densifies narrow grouped convs (int8_bd),
+            # but not baked ones
+            if d.w_int is not None and u.in_ch <= 128 \
+                    and d.w_groups is None:
                 plan[u.name] = ("int8_bd", site)
                 continue
             if d.w_int is not None and min(unit_hw[u.name]) >= 14:
@@ -328,7 +401,8 @@ def make_deploy_plan(graph: Graph, dparams: dict, act_steps: dict,
                 and u.groups == u.in_ch == u.out_ch
                 and u.kernel == (3, 3) and u.padding == (1, 1)
                 and u.stride[0] == u.stride[1] and u.stride[0] in (1, 2)
-                and site in int8_sites and u.name in int8_sites):
+                and site in int8_sites and u.name in int8_sites
+                and d.w_groups is None):
             plan[u.name] = ("dw_int8", site)
             continue
         if use_packed and d.w_packed is not None and site in int8_sites:
@@ -385,34 +459,6 @@ def _finish_affine(acc, sc, b):
     return y if b is None else y + b
 
 
-def _im2col(x, kernel, stride, padding, pad_value: int):
-    """(B, H, W, C) int8 -> (B*Ho*Wo, KH*KW*C) patches, (kh, kw, c) order,
-    padded with ``pad_value``."""
-    b, h, w, c = x.shape
-    (kh, kw), (sh, sw), (ph, pw) = kernel, stride, padding
-    ho = (h + 2 * ph - kh) // sh + 1
-    wo = (w + 2 * pw - kw) // sw + 1
-    if (kh, kw, ph, pw) == (1, 1, 0, 0):
-        return x[:, ::sh, ::sw, :].reshape(b * ho * wo, c), (b, ho, wo)
-    xp = x.new_full((b, h + 2 * ph, w + 2 * pw, c), pad_value)
-    xp[:, ph:ph + h, pw:pw + w, :] = x
-    cols = [xp[:, i:i + sh * (ho - 1) + 1:sh, j:j + sw * (wo - 1) + 1:sw, :]
-            for i in range(kh) for j in range(kw)]
-    return torch.stack(cols, dim=3).reshape(b * ho * wo, kh * kw * c), \
-        (b, ho, wo)
-
-
-def _int_mm(a, w_mat):
-    """int8 (M, K) x int8 (N, K)^T -> int32 (M, N) via torch._int_mm, whose
-    CUDA path needs M > 16 and K, N multiples of 8."""
-    m, k = a.shape
-    n = w_mat.shape[0]
-    if not (m > 16 and k % 8 == 0 and n % 8 == 0):
-        raise ValueError(f"integer route needs M > 16 and K, N multiples "
-                         f"of 8; got M={m}, K={k}, N={n}")
-    return torch._int_mm(a.contiguous(), w_mat.t())
-
-
 def _dw_int_acc(spec: UnitSpec, w_int, xi, offset: int):
     """Exact depthwise conv of int8 feed codes ``xi`` (centered value
     ``xi + offset``): nine shifted int32 multiply-adds over the centered
@@ -433,24 +479,39 @@ def _dw_int_acc(spec: UnitSpec, w_int, xi, offset: int):
     return acc
 
 
-def _int_acc(spec: UnitSpec, d: DeployUnit, xi, offset: int):
+def _int_unit(spec: UnitSpec, d: DeployUnit, xi, offset: int, delta):
     """Exact integer conv/linear of int8 feed codes ``xi`` whose centered
-    value is ``xi + offset``: padding carries -offset (centered zero) and
-    the offset's share comes back as offset * sum(w)."""
+    value is ``xi + offset``, with its epilogue pending: padding carries
+    -offset (centered zero) and the offset's share comes back as offset *
+    sum(w). A baked unit sums its groups through the scale table."""
     if spec.kind == "conv" and spec.groups == spec.in_ch == spec.out_ch \
             and spec.groups > 1:
-        return _dw_int_acc(spec, d.w_int, xi, offset)
+        if d.w_groups is None:
+            acc = _dw_int_acc(spec, d.w_int, xi, offset)
+            return _Pending(acc.to(torch.float32), d.scale * delta, d.bias)
+        out = 0.0
+        for s in range(d.w_groups.shape[0]):
+            acc = _dw_int_acc(spec, d.w_groups[s], xi, offset)
+            out = out + acc.to(torch.float32) * (d.group_scales[s] * delta)
+        return _Pending(out, None, d.bias)
     if spec.kind == "conv" and spec.groups != 1:
         raise NotImplementedError("grouped int8 conv is not ported")
     if spec.kind == "conv":
-        a, (b, ho, wo) = _im2col(xi, spec.kernel, spec.stride, spec.padding,
-                                 -offset)
-        acc = _int_mm(a, d.w_mat).reshape(b, ho, wo, -1)
+        geom = (spec.kernel, spec.stride, spec.padding)
+        x4 = xi
     else:
-        acc = _int_mm(xi, d.w_mat)
-    if offset:
-        acc = acc + offset * d.w_sum
-    return acc
+        geom = ((1, 1), (1, 1), (0, 0))
+        x4 = xi.reshape(xi.shape[0], 1, 1, xi.shape[1])
+    # int32 sums, or (baked unit) the f32 scale-table sum
+    out = int8_conv(x4.contiguous(), d.w_mat, *geom, pad_value=-offset,
+                    group_scales=d.group_scales, act_delta=delta,
+                    acc_offset=offset * d.w_sum if offset else None)
+    scale = None
+    if d.w_groups is None:
+        out, scale = out.to(torch.float32), d.scale * delta
+    if spec.kind != "conv":
+        out = out.reshape(xi.shape[0], -1)
+    return _Pending(out, scale, d.bias)
 
 
 def _clip(x, lo, hi):
@@ -646,8 +707,7 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
         if kind_plan in ("int8", "bf16_codes"):
             delta, zp, n_bits = act_steps[feed_site]
             xi, offset = int_feed(v, delta, zp, n_bits)
-            acc = _int_acc(spec, d, xi, offset)
-            return _Pending(acc.to(torch.float32), d.scale * delta, d.bias)
+            return _int_unit(spec, d, xi, offset, delta)
         # float / float_1p: f32 conv with integer-code weights, TF32 off;
         # float_1p rounds the activation to bf16 first, as the JAX single
         # bf16 pass does (the weight codes are bf16-exact)
@@ -656,6 +716,12 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
             xf = xf.to(torch.bfloat16).to(torch.float32)
         w_eff = (d.w_int if d.w_int is not None else d.w_fp) \
             .to(torch.float32)
+        if d.w_groups is not None:
+            # baked unit on a float edge: fold the scale table back into
+            # the weight (group_scales / scale is each candidate's shift)
+            ratio = (d.group_scales / d.scale[None, :]).reshape(
+                (d.w_groups.shape[0], -1) + (1,) * (w_eff.ndim - 1))
+            w_eff = (d.w_groups.to(torch.float32) * ratio).sum(dim=0)
         if spec.kind == "conv":
             out = conv2d(xf, w_eff, None, spec.stride, spec.padding,
                          spec.groups)

@@ -40,6 +40,11 @@ SIGNATURES = {
     # x, we, ae, wd, ad, wp, ap, qp, out, B, H, W, CI, CE, CO, has_expand,
     # has_residual, stream
     "ssq_mbconv_fused": [_P] * 9 + [_I] * 8 + [_P],
+    # x, w (K, N), scale, bias, qp, out, M, K, N, relu, stream
+    "ssq_quant_matmul": [_P] * 6 + [_I] * 4 + [_P],
+    # codes, w (S, N, K), table, acc_offset, delta, out, S, B, H, W, C, KH,
+    # KW, SH, SW, PH, PW, N, pad, vec, stream
+    "ssq_int8_conv": [_P] * 6 + [_I] * 14 + [_P],
 }
 
 _lock = threading.Lock()

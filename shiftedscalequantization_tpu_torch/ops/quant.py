@@ -1,5 +1,6 @@
-"""Uniform-affine quantizer math (PyTorch port of
-``shiftedscalequantization_tpu/ops/quant.py:64-228``).
+"""Uniform-affine quantizer math and the soft-target relaxations shared by
+AdaRound and shifted-scale selection (PyTorch port of
+``shiftedscalequantization_tpu/ops/quant.py``).
 
 Rounding is half-to-even (``torch.round``), as ``jnp.round`` is. The MSE
 scale search keeps the reference's 80-point shrink grid, but walks the grid
@@ -12,10 +13,30 @@ import dataclasses
 
 import torch
 
+# Soft-target relaxation constants (AdaRound):
+# clamp(sigmoid(a) * (ZETA - GAMMA) + GAMMA, 0, 1)
+GAMMA = -0.1
+ZETA = 1.1
+
 
 def round_ste(x: torch.Tensor) -> torch.Tensor:
     """Round with a straight-through gradient."""
     return x + (torch.round(x) - x).detach()
+
+
+def floor_ste(x: torch.Tensor) -> torch.Tensor:
+    """Floor with a straight-through gradient."""
+    return x + (torch.floor(x) - x).detach()
+
+
+def lp_loss(pred, tgt, p: float = 2.0, reduction: str = "none",
+            channel_axis: int = -1):
+    """L_p reconstruction loss. reduction='none': sum over the channel axis
+    (last, for NHWC), then mean; 'all': plain mean."""
+    d = torch.abs(pred - tgt) ** p
+    if reduction == "none":
+        return d.sum(dim=channel_axis).mean()
+    return d.mean()
 
 
 @dataclasses.dataclass
@@ -170,3 +191,50 @@ def init_act_qparams(x: torch.Tensor, n_bits: int, sym: bool = False,
         delta, zp, _ = init_scale_minmax(
             x, n_bits, sym, scale_bits_adjust="scale" in scale_method)
     return QParams(delta=delta, zero_point=zp, n_bits=n_bits, sym=sym)
+
+
+# ---------------------------------------------------------------------------
+# Soft-target relaxations (shared by AdaRound and shifted-scale selection)
+# ---------------------------------------------------------------------------
+
+def rectified_sigmoid(alpha: torch.Tensor) -> torch.Tensor:
+    """clamp(sigmoid(a) * (zeta - gamma) + gamma, 0, 1)."""
+    return torch.clamp(torch.sigmoid(alpha) * (ZETA - GAMMA) + GAMMA,
+                       0.0, 1.0)
+
+
+def rectified_softmax(alpha: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """clamp(softmax(a) * (zeta - gamma) + gamma, 0, 1)."""
+    return torch.clamp(torch.softmax(alpha, dim=axis) * (ZETA - GAMMA)
+                       + GAMMA, 0.0, 1.0)
+
+
+def inverse_rectified_sigmoid(rest: torch.Tensor) -> torch.Tensor:
+    """alpha with rectified_sigmoid(alpha) == rest."""
+    return -torch.log((ZETA - GAMMA) / (rest - GAMMA) - 1.0)
+
+
+def inverse_rectified_softmax(p: torch.Tensor, axis: int = -1):
+    """Logits with rectified_softmax(logits) == p (mean-centred)."""
+    logits = torch.log((p - GAMMA) / (ZETA - GAMMA))
+    return logits - logits.mean(dim=axis, keepdim=True)
+
+
+def round_regularizer(soft_vals: torch.Tensor, b) -> torch.Tensor:
+    """AdaRound rounding regularizer sum(1 - |2h - 1|^b)."""
+    return (1.0 - (torch.abs(soft_vals - 0.5) * 2.0) ** b).sum()
+
+
+def linear_temp_decay(t, t_max: float, rel_start_decay: float = 0.2,
+                      start_b: float = 20.0, end_b: float = 2.0):
+    """Linear temperature decay b(t): start_b until rel_start_decay * t_max,
+    then linear down to end_b at t_max. ``t`` may be a number or a 0-d
+    tensor; returns a 0-d float32 tensor."""
+    t = torch.as_tensor(t, dtype=torch.float32)
+    start_decay = rel_start_decay * t_max
+    if t_max != start_decay:
+        rel_t = (t - start_decay) / (t_max - start_decay)
+    else:
+        rel_t = torch.ones_like(t)
+    decayed = end_b + (start_b - end_b) * torch.clamp(1.0 - rel_t, min=0.0)
+    return torch.where(t < start_decay, torch.full_like(t, start_b), decayed)

@@ -7,10 +7,14 @@ module reads what the JAX package produces only through numpy
 
 - ``params_from_numpy``: a nested dict of arrays (the ``init_params`` or
   ``prepare_model`` trees) becomes the same dict of tensors.
-- ``qstate_from_numpy``: a qstate of unit entries (``wq.qp`` with delta,
-  zero_point, n_bits, sym; ``aq``; ``alpha_out``/``beta_out``/``raw_zp``)
-  and block-level act quantizers becomes the port's qstate with
-  ``UniformWQ`` weight quantizers. Entries may be objects or dicts.
+- ``qstate_from_numpy``: a qstate of unit entries (``wq``; ``aq``;
+  ``alpha_out``/``beta_out``/``raw_zp``) and block-level act quantizers
+  becomes the port's qstate. Weight quantizers are carried with their
+  arrays and their static fields: ``UniformWQ``, ``AdaRoundWQ``
+  (``soft``, ``signed_clamp``, ``st_index``, ``shift_targets``),
+  ``ShiftedScaleWQ`` (``hard_targets``, ``hard_round``, ``codes``,
+  ``dequant``) and ``InpScaleWQ``. Entries may be objects or dicts; a
+  dict quantizer is told apart by its keys.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch
 from .._device import resolve_device
 from ..graph import UnitQuant
 from ..ops.quant import QParams
-from ..ops.wquant import UniformWQ
+from ..ops import wquant as W
 
 
 def _get(obj, key):
@@ -46,9 +50,52 @@ def qparams_from_numpy(qp, device="cuda") -> QParams:
                    n_bits=int(_get(qp, "n_bits")), sym=bool(_get(qp, "sym")))
 
 
+def _kind(wq) -> str:
+    if not isinstance(wq, dict):
+        return type(wq).__name__
+    for key, kind in (("x_q", "ShiftedScaleWQ"), ("inp_scale", "InpScaleWQ"),
+                      ("alpha", "AdaRoundWQ")):
+        if key in wq:
+            return kind
+    return "UniformWQ"
+
+
+def weight_quantizer_from_numpy(wq, device="cuda"):
+    """One weight quantizer of the JAX package -> the port's."""
+    dev = resolve_device(device)
+    kind = _kind(wq)
+    if kind not in ("UniformWQ", "AdaRoundWQ", "ShiftedScaleWQ",
+                    "InpScaleWQ"):
+        raise NotImplementedError(f"weight quantizer {kind} is not ported")
+    qp = qparams_from_numpy(_get(wq, "qp"), dev)
+    if kind == "UniformWQ":
+        return W.UniformWQ(qp=qp)
+    if kind == "AdaRoundWQ":
+        idx = _get(wq, "st_index")
+        return W.AdaRoundWQ(
+            qp=qp, alpha=_tensor(_get(wq, "alpha"), dev),
+            soft=bool(_get(wq, "soft")),
+            signed_clamp=bool(_get(wq, "signed_clamp")),
+            st_index=None if idx is None else _tensor(idx, dev).long(),
+            shift_targets=tuple(float(t) for t in _get(wq, "shift_targets")))
+    if kind == "ShiftedScaleWQ":
+        beta = _get(wq, "beta")
+        return W.ShiftedScaleWQ(
+            qp=qp, alpha=_tensor(_get(wq, "alpha"), dev),
+            beta=None if beta is None else _tensor(beta, dev),
+            x_q=_tensor(_get(wq, "x_q"), dev),
+            shift_targets=tuple(float(t) for t in _get(wq, "shift_targets")),
+            hard_targets=bool(_get(wq, "hard_targets")),
+            hard_round=bool(_get(wq, "hard_round")),
+            codes=bool(_get(wq, "codes")), dequant=str(_get(wq, "dequant")))
+    return W.InpScaleWQ(
+        qp=qp, raw_zero_point=_tensor(_get(wq, "raw_zero_point"), dev),
+        inp_scale=_tensor(_get(wq, "inp_scale"), dev))
+
+
 def qstate_from_numpy(qstate: dict, device="cuda") -> dict:
-    """Unit entries (those with a ``wq``) become UnitQuant with a UniformWQ;
-    other entries are block-level act QParams."""
+    """Unit entries (those with a ``wq``) become UnitQuant; other entries
+    are block-level act QParams."""
     dev = resolve_device(device)
     out = {}
     for name, v in qstate.items():
@@ -59,15 +106,14 @@ def qstate_from_numpy(qstate: dict, device="cuda") -> dict:
         if not has_wq:
             out[name] = qparams_from_numpy(v, dev)
             continue
-        wq = _get(v, "wq")
-        if not isinstance(wq, dict) and type(wq).__name__ != "UniformWQ":
-            raise NotImplementedError(
-                f"{name}: weight quantizer {type(wq).__name__} is not "
-                "ported (UniformWQ only)")
+        try:
+            wq = weight_quantizer_from_numpy(_get(v, "wq"), dev)
+        except NotImplementedError as e:
+            raise NotImplementedError(f"{name}: {e}") from None
         aq = _get(v, "aq")
         opt = {k: (None if _get(v, k) is None else _tensor(_get(v, k), dev))
                for k in ("alpha_out", "beta_out", "raw_zp")}
         out[name] = UnitQuant(
-            wq=UniformWQ(qp=qparams_from_numpy(_get(wq, "qp"), dev)),
+            wq=wq,
             aq=None if aq is None else qparams_from_numpy(aq, dev), **opt)
     return out

@@ -1,5 +1,5 @@
 """Card-only tests of the PyTorch port: each CUDA kernel against its plain
-version on the card, and one integer deploy forward through both kernels.
+version on the card, and integer deploy forwards through the kernels.
 
 Marked ``cuda``; they skip where no card is present. On a machine with one:
 
@@ -71,12 +71,14 @@ def test_stem_kernel_matches_plain(card, b, h, oc, biased):
 
 
 def test_deploy_forward_on_card_runs_both_kernels(card, monkeypatch):
-    """ResNet-18 ImageNet W2A4 at 64x64: one stem and three packed launches
-    per forward, deploy == sim as bench.py gates it (rel-MSE <= 1e-2), and
-    the card agrees with the CPU plain path on the same state."""
+    """ResNet-18 ImageNet W2A4 at 64x64: one stem, three packed and 16
+    int8_conv launches per forward, deploy == sim as bench.py gates it
+    (rel-MSE <= 1e-2), and the card agrees with the CPU plain path on the
+    same state."""
     import shiftedscalequantization_tpu_torch as tp
     from shiftedscalequantization_tpu_torch import deploy as TD
     from shiftedscalequantization_tpu_torch.models import zoo as TZ
+    from shiftedscalequantization_tpu_torch.ops.cuda import int_matmul as TI
     from shiftedscalequantization_tpu_torch.ops.cuda import packed as TP
     from shiftedscalequantization_tpu_torch.ops.cuda import stem as TS
     monkeypatch.setenv("SSQ_STEM_KERNEL", "1")
@@ -94,9 +96,11 @@ def test_deploy_forward_on_card_runs_both_kernels(card, monkeypatch):
     plan = TD.make_deploy_plan(graph, dp, steps, input_hw=(64, 64))
     TS.stem_fused.launches = 0
     TP.packed_quant_matmul.launches = 0
+    TI.int8_conv.launches = 0
     dep = TD.deploy_forward(graph, dp, steps, x, plan=plan, device=card)
     torch.cuda.synchronize()
-    assert (TS.stem_fused.launches, TP.packed_quant_matmul.launches) == (1, 3)
+    assert (TS.stem_fused.launches, TP.packed_quant_matmul.launches,
+            TI.int8_conv.launches) == (1, 3, 16)
     sim = tp.forward(graph, params, qs, x,
                      tp.quantize.act_flags(
                          graph, cfg, base=tp.Flags().all_weights(graph)),
@@ -208,6 +212,159 @@ def test_mobilenetv2_deploy_on_card_runs_dw_kernel(card, monkeypatch):
     torch.cuda.synchronize()
     assert (TDW.dw_conv3x3_int8.launches,
             TP.packed_quant_matmul.launches) == (16, 34)
+    sim = tp.forward(graph, params, qs, x,
+                     tp.quantize.act_flags(
+                         graph, cfg, base=tp.Flags().all_weights(graph)),
+                     device=card)
+    rel = float(((sim - dep) ** 2).mean() / (sim ** 2).mean())
+    assert torch.isfinite(dep).all() and rel <= 1e-2, rel
+    cpu = lambda d: {k: (v.cpu() if torch.is_tensor(v) else v)  # noqa
+                     for k, v in d.__dict__.items()}
+    dp_cpu = {k: TD.DeployUnit(**cpu(v)) for k, v in dp.items()}
+    steps_cpu = {k: (d.cpu(), z.cpu(), n) for k, (d, z, n) in steps.items()}
+    dep_cpu = TD.deploy_forward(graph, dp_cpu, steps_cpu, x.cpu(), plan=plan,
+                                device="cpu")
+    rel_cpu = float(((dep.cpu() - dep_cpu) ** 2).mean()
+                    / (dep_cpu ** 2).mean())
+    assert rel_cpu <= 1e-8, rel_cpu
+    assert torch.equal(dep.cpu().argmax(-1), dep_cpu.argmax(-1))
+
+
+@pytest.mark.parametrize("m,k,n,relu,bits", [
+    (12544, 256, 512, False, 4), (1000, 130, 72, True, 4),
+    (37, 16, 24, False, 4), (300, 64, 128, True, 8)])
+def test_quant_matmul_kernel_matches_plain(card, m, k, n, relu, bits):
+    """Division, half-to-even rounding, exact int32 sums and an epilogue
+    rounded step by step on both sides: bit-exact, ragged M, K and N
+    included (8-bit codes centred by zp 128 to fit int8)."""
+    from shiftedscalequantization_tpu_torch.ops.cuda import int_matmul as TI
+    g = torch.Generator(device=card).manual_seed(4)
+    x = torch.randn((m, k), generator=g, device=card)
+    w = torch.randint(-2, 2, (k, n), generator=g, device=card,
+                      dtype=torch.int8)
+    scale = torch.rand((n,), generator=g, device=card) * 0.1
+    bias = torch.randn((n,), generator=g, device=card)
+    zp = 7.0 if bits == 4 else 128.0
+    args = (x, w, scale, bias, torch.tensor(0.05, device=card),
+            torch.tensor(zp, device=card), bits, relu)
+    before = TI.quant_matmul.launches
+    got = TI.quant_matmul(*args)
+    torch.cuda.synchronize()
+    assert TI.quant_matmul.launches == before + 1
+    assert torch.equal(got, TI.quant_matmul_plain(*args))
+    x4 = x[:36].reshape(1, 6, 6, k)
+    got = TI.quant_conv1x1(x4, w.T.contiguous(), scale, bias, *args[4:7],
+                           stride=(2, 2), relu=relu)
+    want = TI.quant_matmul_plain(x4[:, ::2, ::2].reshape(9, k), *args[1:])
+    assert torch.equal(got.reshape(9, n), want)
+
+
+@pytest.mark.parametrize("b,h,c,n,kern,stride,pad,s,pad_value,offset", [
+    (4, 14, 64, 64, 3, 1, 1, 1, 0, False),
+    (2, 15, 128, 72, 3, 2, 1, 2, 0, False),
+    (3, 9, 32, 40, 1, 2, 0, 2, 0, True),
+    (2, 8, 16, 16, 3, 1, 1, 1, -128, True),
+    (2, 11, 3, 24, 5, 2, 2, 3, 3, False),
+    (1, 7, 48, 8, 3, 1, 1, 4, -8, True)])
+def test_int8_conv_kernel_matches_plain(card, b, h, c, n, kern, stride, pad,
+                                        s, pad_value, offset):
+    """Exact int32 sums and a scale-table epilogue rounded step by step in
+    the JAX package's order: bit-exact for int32 (S = 1) and f32 (S >= 1)
+    outputs, with offset padding, per-group offsets, ragged M, N and K,
+    and C not a multiple of 16 (byte gathers)."""
+    from shiftedscalequantization_tpu_torch.ops.cuda import int_matmul as TI
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randint(-8, 8, (b, h, h, c), generator=g, device=card,
+                      dtype=torch.int8)
+    w = torch.randint(-2, 2, (s, n, kern * kern * c), generator=g,
+                      device=card, dtype=torch.int8)
+    acc_off = torch.randint(-300, 300, (s, n), generator=g, device=card,
+                            dtype=torch.int32) if offset else None
+    geom = ((kern, kern), (stride, stride), (pad, pad))
+    before = TI.int8_conv.launches
+    if s == 1:
+        got = TI.int8_conv(x, w, *geom, pad_value=pad_value,
+                           acc_offset=acc_off)
+        want = TI.int8_conv_plain(x, w, *geom, pad_value=pad_value,
+                                  acc_offset=acc_off)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    table = torch.rand((s, n), generator=g, device=card) * 0.02 + 1e-3
+    delta = torch.tensor(0.37, device=card)
+    got = TI.int8_conv(x, w, *geom, pad_value=pad_value, group_scales=table,
+                       act_delta=delta, acc_offset=acc_off)
+    torch.cuda.synchronize()
+    assert TI.int8_conv.launches == before + 1 + (s == 1)
+    want = TI.int8_conv_plain(x, w, *geom, pad_value=pad_value,
+                              group_scales=table, act_delta=delta,
+                              acc_offset=acc_off)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+def test_int8_conv_refuses_what_it_cannot_take(card):
+    """On a CUDA tensor the wrapper launches or raises: too many groups,
+    a weight of the wrong K, a non-contiguous input, no table for S > 1."""
+    from shiftedscalequantization_tpu_torch.ops.cuda import int_matmul as TI
+    x = torch.zeros((2, 8, 8, 16), dtype=torch.int8, device=card)
+    geom = ((3, 3), (1, 1), (1, 1))
+    table = torch.ones((5, 8), device=card)
+    before = TI.int8_conv.launches
+    with pytest.raises(ValueError, match="weight groups"):
+        TI.int8_conv(x, torch.zeros((5, 8, 144), dtype=torch.int8,
+                                    device=card), *geom,
+                     group_scales=table, act_delta=1.0)
+    with pytest.raises(ValueError, match="weight groups"):
+        TI.int8_conv(x, torch.zeros((2, 8, 144), dtype=torch.int8,
+                                    device=card), *geom)
+    with pytest.raises(ValueError, match="KH\\*KW\\*C"):
+        TI.int8_conv(x, torch.zeros((1, 8, 140), dtype=torch.int8,
+                                    device=card), *geom)
+    with pytest.raises(ValueError, match="contiguous"):
+        TI.int8_conv(x.permute(0, 2, 1, 3), torch.zeros(
+            (1, 8, 144), dtype=torch.int8, device=card), *geom)
+    assert TI.int8_conv.launches == before
+
+
+def test_shifted_scale_deploy_on_card(card, monkeypatch):
+    """The method path at small size: CIFAR ResNet-18 W2A4, fused
+    shifted-scale quantizers with targets {1/2, 1} (logits perturbed)
+    hardened to the baked form, served: 19 int8_conv launches per
+    forward (16 3x3 convs and 3 downsamples), deploy == sim within the
+    1e-2 gate, and on 1/8-grid images the card equals the CPU plain path
+    (rel-MSE <= 1e-8, same top-1)."""
+    import shiftedscalequantization_tpu_torch as tp
+    from shiftedscalequantization_tpu_torch import deploy as TD
+    from shiftedscalequantization_tpu_torch.models import zoo as TZ
+    from shiftedscalequantization_tpu_torch.ops.cuda import int_matmul as TI
+    from shiftedscalequantization_tpu_torch.recon import engine as TE
+    from shiftedscalequantization_tpu_torch.quantize import unit_order
+    monkeypatch.setenv("SSQ_PACKED", "1")
+    graph, _ = TZ.build("resnet18", num_classes=10, dataset="cifar10")
+    cfg = tp.QuantConfig(n_bits_w=2, n_bits_a=4)
+    params, qs = tp.prepare_model(graph, TZ.init_params(graph, device=card),
+                                  cfg, device=card)
+    x = np.random.default_rng(0).normal(size=(16, 32, 32, 3))
+    x = torch.as_tensor((np.round(x * 8) / 8).astype(np.float32),
+                        device=card)
+    qs = tp.calibrate_acts(graph, params, qs, x, cfg, device=card)
+    names = unit_order(graph)
+    qs, theta = TE._init_quantizers(params, qs, names, TE.ReconSettings(
+        mode="fused", shift_targets=(0.5, 1.0)))
+    # seeded noise on the logits, as a trained state would have, so that
+    # both candidates own input channels
+    g = torch.Generator(device=card).manual_seed(6)
+    theta = {n: {k: v + torch.randn(v.shape, generator=g, device=card)
+                 for k, v in t.items()} for n, t in theta.items()}
+    qs = TE._harden(TE._insert_theta(qs, theta), names, "fused")
+    dp = TD.build_deploy_params(graph, params, qs, device=card)
+    assert sum(d.w_groups is not None for d in dp.values()) == 19
+    assert all(bool((d.w_groups[s] != 0).any()) for d in dp.values()
+               if d.w_groups is not None for s in range(2))
+    steps = TD.act_steps_from_qstate(graph, qs)
+    plan = TD.make_deploy_plan(graph, dp, steps, input_hw=(32, 32))
+    TI.int8_conv.launches = 0
+    dep = TD.deploy_forward(graph, dp, steps, x, plan=plan, device=card)
+    torch.cuda.synchronize()
+    assert TI.int8_conv.launches == 19
     sim = tp.forward(graph, params, qs, x,
                      tp.quantize.act_flags(
                          graph, cfg, base=tp.Flags().all_weights(graph)),

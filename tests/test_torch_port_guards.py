@@ -41,8 +41,8 @@ def test_kernel_sources_and_build_command():
     linked into one library loaded with ctypes; the package carries no
     torch extension build."""
     srcs = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert srcs == ["dw_conv3x3.cu", "mbconv_fused.cu", "packed_qmm.cu",
-                    "stem_fused.cu"]
+    assert srcs == ["dw_conv3x3.cu", "int_matmul.cu", "mbconv_fused.cu",
+                    "packed_qmm.cu", "stem_fused.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == ROOT / "build" / "torch_kernels"
     for path in PORT.rglob("*.py"):
@@ -85,13 +85,27 @@ def test_entry_points_without_a_card_raise(no_card):
 
 
 def test_unported_weight_quantizer_is_refused():
-    class AdaRoundWQ:      # stands in for a JAX-package quantizer object
+    """Forms the JAX package also refuses to deploy (two-phase
+    ShiftedScaleWQ with codes=False, InpScaleWQ) raise with its message;
+    a quantizer type the port does not know is refused when carried."""
+    from shiftedscalequantization_tpu_torch.ops import wquant as W
+    from shiftedscalequantization_tpu_torch.ops.quant import QParams
+    w = torch.randn(4, 3, 3, 3, generator=torch.Generator().manual_seed(0))
+    qp = QParams(delta=torch.full((4, 1), 0.5), zero_point=torch.ones(4, 1),
+                 n_bits=2, sym=False)
+    for wq in (W.init_shifted_scale_twophase(qp, w, (0.5, 1.0)),
+               W.init_inp_scale(qp, torch.zeros(4, 1), w)):
+        with pytest.raises(NotImplementedError,
+                           match=f"{type(wq).__name__} .*scale-table"):
+            TD._hard_weight_codes(wq, w)
+
+    class ActShiftQuant:    # stands in for a JAX-package quantizer object
         qp = None
 
     class Unit:
-        wq = AdaRoundWQ()
+        wq = ActShiftQuant()
         aq = None
         alpha_out = beta_out = raw_zp = None
 
-    with pytest.raises(NotImplementedError, match="AdaRoundWQ"):
+    with pytest.raises(NotImplementedError, match="ActShiftQuant"):
         JI.qstate_from_numpy({"u": Unit()}, device="cpu")

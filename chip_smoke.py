@@ -54,14 +54,49 @@ non-zero exit and no result line:
 13. method serving: one deploy forward at batch 256 with the counters
    reset just before it (19 int8_conv, 1 stem, 0 packed launches), its
    time, and the shift-candidate selection ratios;
-14. method parity: sim against deploy, no NaN, rel-MSE <= 1e-2; card
-   against CPU deploy on 8 grid images, rel-MSE <= 1e-8, same top-1.
+14. method parity: sim against deploy, no NaN, rel-MSE <= 1e-2, with the
+   top-1 agreement and how close the sim's top two logits sit beside the
+   deploy-vs-sim difference; card against CPU deploy on 8 grid images,
+   rel-MSE <= 1e-8, same top-1;
+15. fake_quant kernel: the fake-quant kernel against its plain version,
+   bit-exact, at every act site's (N*H*W, C) shape of the ResNet-18 sim
+   forward at batch 256, the stem's and a W2 per-row weight shape and a
+   ragged (10, 130), timed beside its bound (8 bytes per element) and
+   torch.fake_quantize_per_tensor_affine / _per_channel_affine (a
+   yardstick: they multiply by the reciprocal); then the autograd
+   Function's backward on the card against the plain version's autograd
+   gradient, with elements on the clip bounds;
+16. recon setup: the paper's reconstruction flow (the CLI's --mode fused)
+   on ImageNet ResNet-18 W2A4 at full width: 256 seeded 224x224 images,
+   prepare_model, act calibration on 64 of them with the weights on;
+17. reconstruction: first the first target reconstructed twice as the
+   pipeline will, untimed, under torch.profiler (host activity), with
+   host CPU seconds and allocator retries: what the first run pays once;
+   then reconstruct_model over the 9
+   targets (reconstruction_targets; one CaptureSession), shift targets
+   {1/2, 1} (effective dequant), warm start 0.25, refine 0.5, RECON_ITERS
+   steps per target at batch 32; per target the capture seconds, steps/s,
+   the loss before, the soft and hard loss, each trace's first-10 and
+   last-10 means and the selection ratios; every loss finite and every
+   trace's last-10 mean <= its first-10 mean;
+18. recon parity: layer4.1 reconstructed on the card and on the CPU (the
+   plain versions) from the same 64-row caches and the same CPU-generator
+   rows; rec_trace within PARITY_RTOL, hardened codes within PARITY_FLIPS;
+19. recon serving: calibration again with the reconstructed prefix, the
+   sim forward with every act site on (counters reset just before it:
+   fake_quant once per act site, 17, and once for the stem's 8-bit
+   UniformWQ weight), deploy conversion and one deploy forward (19
+   int8_conv, 1 stem); deploy vs sim rel-MSE <= 1e-2, no NaN, its top-1
+   agreement and margins as in 14; card vs CPU deploy on 8 grid images
+   rel-MSE <= 1e-8, same top-1.
 
 It imports nothing of JAX. Standard output ends with a JSON line of
 details, a JSON line of the kernels, the nvidia-smi line, the total
 seconds, and then ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -75,6 +110,15 @@ CARD_CPU_GATE = 1e-8             # card deploy vs CPU deploy, grid images
 MNV2_KINDS = {"dw_int8": 16, "packed": 34, "bf16_codes": 1, "float_1p": 1,
               "float": 1}
 SHIFT_TARGETS = (0.5, 1.0)       # the method path's candidate set
+RECON_IMAGES = 256               # calibration set of the reconstruction
+RECON_ITERS = 200                # optimizer steps per target (CLI: 20000)
+RECON_BATCH = 32                 # minibatch of a reconstruction step
+RECON_CAL_ROWS = 64              # act calibration rows, before and after
+PARITY_ROWS = 64                 # card vs CPU reconstruction of layer4.1
+PARITY_ITERS = 16
+PARITY_RTOL = 1e-3               # rec_trace, card vs CPU
+PARITY_FLIPS = 0.005             # hardened codes, card vs CPU
+GRAD_RTOL = 1e-4                 # delta / zp gradients: sums in two orders
 BATCH = 256
 HW = 224
 _T0 = time.perf_counter()
@@ -471,6 +515,149 @@ def check_int8_conv(torch, gen, int_matmul, shapes):
     return rows
 
 
+def act_site_shapes(graph, params, qstate, cfg, x1, batch):
+    """{(rows, C): count} of the act sites of the sim forward at ``batch``
+    images, read from a forward of one image."""
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.graph import Flags, \
+        forward_multi_capture
+    sites = list(Q.act_quant_sites(graph, cfg))
+    caps = forward_multi_capture(graph, params, qstate, x1, {}, sites,
+                                 Flags(), device=x1.device)
+    shapes = {}
+    for _, out in caps.values():
+        c = out.shape[-1]
+        key = (batch * out[0].numel() // c, c)
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def _pin_codes(torch, gen, x, d, z, hi, share=0.2):
+    """x with ``share`` of its elements moved onto exact codes, the clip
+    bounds and two steps beyond them included."""
+    codes = torch.randint(-2, hi + 3, x.shape, generator=gen,
+                          device=x.device).float()
+    pin = torch.rand(x.shape, generator=gen, device=x.device) < share
+    return torch.where(pin, (codes - z) * d, x)
+
+
+def check_fake_quant(torch, gen, fq, act_shapes):
+    """fake_quant_2d vs its plain version, bit-exact: 4-bit per-tensor at
+    each act site shape, the stem's 8-bit and a W2 per-row weight shape,
+    and a ragged (10, 130). Timed beside the bound (8 bytes per element)
+    and torch.fake_quantize_per_tensor_affine / _per_channel_affine (a
+    yardstick: they multiply by the reciprocal)."""
+    dev = "cuda"
+    cases = [(f"act {r}x{c}", r, c, n, False, 4)
+             for (r, c), n in sorted(act_shapes.items(), reverse=True)]
+    cases += [("weight stem 64x147, 8-bit", 64, 147, 1, True, 8),
+              ("weight layer4 conv2 512x4608, W2", 512, 4608, 0, True, 2),
+              ("ragged 10x130", 10, 130, 0, True, 4)]
+    rows = []
+    for name, r, c, count, per_row, bits in cases:
+        hi = 2 ** bits - 1
+        if per_row:
+            d = torch.rand((r, 1), generator=gen, device=dev) * 0.3 + 0.05
+            z = torch.randint(0, hi + 1, (r, 1), generator=gen,
+                              device=dev).float()
+        else:
+            d = torch.full((1, 1), 0.37, device=dev)
+            z = torch.zeros((1, 1), device=dev)
+        x = _pin_codes(torch, gen, torch.randn((r, c), generator=gen,
+                                               device=dev) * 2, d, z, hi)
+        got = fq.fake_quant_2d(x, d, z, 0, hi)
+        want = fq.fake_quant_plain(x, d, z, 0, hi)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            err = float((got - want).abs().max())
+            raise AssertionError(f"fake_quant {name}: max abs err {err}")
+        ms = time_cuda(lambda: fq.fake_quant_2d(x, d, z, 0, hi))
+        plain_ms = time_cuda(lambda: fq.fake_quant_plain(x, d, z, 0, hi),
+                             iters=5)
+        zi = z.to(torch.int32)
+        if per_row:
+            lib_ms = time_cuda(lambda: torch.fake_quantize_per_channel_affine(
+                x, d.reshape(-1), zi.reshape(-1), 0, 0, hi))
+        else:
+            lib_ms = time_cuda(lambda: torch.fake_quantize_per_tensor_affine(
+                x, d.reshape(()), zi.reshape(()), 0, hi))
+        b_ms, b_by = bound_ms(8 * r * c + 8 * d.numel(), 6 * r * c,
+                              F32_FLOPS)
+        print(f"  fake_quant {name} (x{count}): {ms:.4f} ms (bound "
+              f"{b_ms:.4f} ms by {b_by}, plain {plain_ms:.4f}, torch "
+              f"fake_quantize {lib_ms:.4f}), bit-exact", flush=True)
+        rows.append(dict(name=name, shape=(r, c), count=count, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by, err=0.0))
+    return rows
+
+
+def check_fake_quant_grad(torch, gen, fq):
+    """The autograd Function's backward on the card (fake_quant_act and
+    fake_quant_weight) against autograd through the plain version, a fifth
+    of the elements on exact codes: grad x equal, grad delta and zp within
+    GRAD_RTOL of the largest."""
+    dev = "cuda"
+    rows = []
+    for kind, shape, bits in (("act", (64, 28, 28, 128), 4),
+                              ("weight", (512, 256, 3, 3), 2)):
+        hi = 2 ** bits - 1
+        if kind == "act":
+            d = torch.tensor(0.37, device=dev)
+            z = torch.tensor(2.0, device=dev)
+            db, zb = d, z
+        else:
+            d = torch.rand((shape[0], 1), generator=gen, device=dev) * 0.3 \
+                + 0.05
+            z = torch.randint(0, hi + 1, (shape[0], 1), generator=gen,
+                              device=dev).float()
+            db, zb = d.reshape(-1, 1, 1, 1), z.reshape(-1, 1, 1, 1)
+        x = _pin_codes(torch, gen, torch.randn(shape, generator=gen,
+                                               device=dev) * 2, db, zb, hi)
+        g = torch.randn(shape, generator=gen, device=dev)
+        grads = []
+        for route in ("kernel", "plain"):
+            xt, dt, zt = (t.clone().requires_grad_(True) for t in (x, d, z))
+            if route == "plain":
+                y = fq.fake_quant_plain(xt, dt.reshape(db.shape),
+                                        zt.reshape(zb.shape), 0, hi)
+            elif kind == "act":
+                y = fq.fake_quant_act(xt, dt, zt, bits)
+            else:
+                y = fq.fake_quant_weight(xt, dt, zt, bits, False)
+            (y * g).sum().backward()
+            grads.append((xt.grad, dt.grad, zt.grad))
+        torch.cuda.synchronize()
+        (gx, gd, gz), (rx, rd, rz) = grads
+        ties = int(((rx / g - 0.5).abs() < 1e-6).sum())
+        if not torch.equal(gx, rx) or ties == 0:
+            raise AssertionError(f"fake_quant backward {kind}: grad x "
+                                 f"differs or no tie ({ties})")
+        errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in ((gd, rd), (gz, rz))]
+        print(f"  fake_quant backward {kind} {tuple(shape)}: grad x equal "
+              f"({ties} elements at a clip bound), grad delta / zp rel err "
+              f"{errs[0]:.3g} / {errs[1]:.3g} (gate {GRAD_RTOL:g})",
+              flush=True)
+        if max(errs) > GRAD_RTOL:
+            raise AssertionError(f"fake_quant backward {kind}: {errs}")
+        rows.append(dict(kind=kind, shape=shape, ties=ties,
+                         delta_rel_err=errs[0], zp_rel_err=errs[1]))
+    return rows
+
+
+def trace_means(metrics):
+    """{phase: (first-10 mean, last-10 mean)} of a target's traces."""
+    out = {}
+    for phase_name, tr in (("warm start", metrics.get("warmstart", {})
+                            .get("rec_trace")),
+                           ("joint", metrics.get("rec_trace")),
+                           ("refine", metrics.get("refine_trace"))):
+        if tr is not None:
+            out[phase_name] = (float(tr[:10].mean()), float(tr[-10:].mean()))
+    return out
+
+
 def logit_rel_mse(torch, got, want):
     g, w = got.double(), want.double()
     return float(((g - w) ** 2).mean() / (w ** 2).mean().clamp_min(1e-30))
@@ -486,6 +673,313 @@ def to_cpu(torch, deploy, dparams, steps):
             {k: (d.cpu(), z.cpu(), n) for k, (d, z, n) in steps.items()})
 
 
+def first_target_probe(torch, engine, capture, graph, params, qstate, cali,
+                       target, settings):
+    """The first target reconstructed twice as the pipeline will (same
+    settings, all calibration rows), before the timed pipeline, each run
+    under torch.profiler (host activity; a first, empty session pays the
+    profiler's own start-up). The first run pays what a process pays once,
+    which the pipeline's timing then leaves out. Returns, per run, its
+    seconds, the process's host CPU seconds, the caching allocator's
+    retries and device allocations, the sum of op self times and the ops
+    with the most self time."""
+    from torch.profiler import ProfilerActivity, profile
+    from shiftedscalequantization_tpu_torch.graph import Flags
+    ci, co = capture.capture_io(graph, params, qstate, target, cali, Flags(),
+                                Flags(), batch_size=64, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU]):
+        pass
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_stats()
+        t, c = time.perf_counter(), time.process_time()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            engine.reconstruct_node(graph, params, qstate, target, ci, co,
+                                    settings, seed=0)
+            torch.cuda.synchronize()
+        sec, cpu = time.perf_counter() - t, time.process_time() - c
+        mem1 = torch.cuda.memory_stats()
+        ops = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                     reverse=True)
+        runs.append(dict(
+            s=sec, cpu_s=cpu,
+            alloc_retries=mem1["num_alloc_retries"]
+            - mem0["num_alloc_retries"],
+            device_allocs=mem1["num_device_alloc"] - mem0["num_device_alloc"],
+            ops_self_s=sum(e.self_cpu_time_total for e in ops) / 1e6,
+            top=[(e.key, e.self_cpu_time_total / 1e6, e.count)
+                 for e in ops[:6]]))
+    return runs
+
+
+def margin_reading(torch, sim, dep):
+    """How close the sim logits' top two sit, against the deploy-vs-sim
+    difference, both over the logits' standard deviation: the medians,
+    the images whose margin is below twice their largest difference (only
+    these can change top-1) and those that did."""
+    s, d = sim.double(), dep.double()
+    sd = float(s.std())
+    top2 = s.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]) / sd
+    diff = (d - s).abs().amax(-1) / sd
+    return dict(median_margin=float(margin.median()),
+                median_max_diff=float(diff.median()),
+                can_flip=int((margin < 2 * diff).sum()),
+                flipped=int((s.argmax(-1) != d.argmax(-1)).sum()),
+                images=int(s.shape[0]))
+
+
+def kernel_counters():
+    """Every kernel wrapper of the port that counts its launches."""
+    from shiftedscalequantization_tpu_torch.ops.cuda import depthwise, \
+        fake_quant, int_matmul, mbconv, packed, stem
+    return (stem.stem_fused, packed.packed_quant_matmul, int_matmul.int8_conv,
+            int_matmul.quant_matmul, depthwise.dw_conv3x3_int8,
+            mbconv.mbconv_fused, fake_quant.fake_quant_2d,
+            fake_quant.fake_quant_act, fake_quant.fake_quant_weight)
+
+
+def reset_counts():
+    for fn in kernel_counters():
+        fn.launches = 0
+
+
+def counts():
+    return {fn.__name__: fn.launches for fn in kernel_counters()}
+
+
+def check_counts(got, **want):
+    """Fail unless each named kernel was launched the wanted times."""
+    seen = {k: got[k] for k in want}
+    if seen != want:
+        raise AssertionError(f"kernel launches {seen}, want {want}")
+
+
+def recon_phases(torch, gen):
+    """Phases 16-19: the paper's reconstruction flow (the CLI's --mode
+    fused) on ImageNet ResNet-18 W2A4 at full width, then the sim forward
+    and deploy of its result. Returns what the result lines report."""
+    from shiftedscalequantization_tpu_torch import deploy
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.graph import Flags, find_node, \
+        forward, iter_units, node_unit_names
+    from shiftedscalequantization_tpu_torch.models import zoo
+    from shiftedscalequantization_tpu_torch.recon import capture, engine, \
+        pipeline
+
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    rg, _ = zoo.build("resnet18", dataset="imagenet")
+    rcfg = Q.QuantConfig(n_bits_w=2, n_bits_a=4)
+    rparams, rqs = Q.prepare_model(
+        rg, zoo.init_params(rg, seed=1, device="cuda"), rcfg, device="cuda")
+    cali = torch.randn((RECON_IMAGES, HW, HW, 3), generator=gen, device="cuda")
+    wflags = Flags().all_weights(rg)
+    reset_counts()
+    rqs = Q.calibrate_acts(rg, rparams, rqs, cali[:RECON_CAL_ROWS], rcfg,
+                           flags=wflags, device="cuda")
+    sync()
+    cal_counts = counts()
+    print(f"  setup ({RECON_IMAGES} images, prepare_model, calibration on "
+          f"{RECON_CAL_ROWS}) {time.perf_counter() - t0:.2f} s; fake_quant "
+          f"launches in "
+          f"the calibration: act {cal_counts['fake_quant_act']}, weight "
+          f"{cal_counts['fake_quant_weight']}", flush=True)
+    phase("recon setup", t0)
+
+    t0 = time.perf_counter()
+    targets = Q.reconstruction_targets(rg)
+    settings = engine.ReconSettings(
+        mode="fused", iters=RECON_ITERS, batch_size=RECON_BATCH,
+        shift_targets=SHIFT_TARGETS, warmstart_frac=0.25,
+        post_round_frac=0.5)
+    pre_qs = rqs
+    recon_rows = []
+
+    def on_done(name, qs, m, prefix):
+        means = trace_means(m)
+        losses = {k: float(m[k]) for k in ("init_loss", "soft_loss",
+                                            "hard_loss_prerefine",
+                                            "hard_loss") if k in m}
+        ratios = {u: (r if isinstance(r, str) else
+                      [round(float(v), 4) for v in r])
+                  for u, r in m["selection_ratio"].items()}
+        row = dict(target=name, capture_s=m["capture_s"],
+                   recon_s=m["recon_s"],
+                   steps_per_s=RECON_ITERS / m["recon_s"], **losses,
+                   traces=means, selection_ratio=ratios)
+        recon_rows.append(row)
+        print(f"  {name}: capture {m['capture_s']:.3f} s, {RECON_ITERS} "
+              f"steps in {m['recon_s']:.3f} s ({row['steps_per_s']:.1f} "
+              f"steps/s); loss before {losses['init_loss']:.6g}, soft "
+              f"{losses['soft_loss']:.6g}, hard {losses['hard_loss']:.6g}"
+              + (f" (before refine {losses['hard_loss_prerefine']:.6g})"
+                 if "hard_loss_prerefine" in losses else "") + "; traces "
+              + ", ".join(f"{k} {a:.6g} -> {b:.6g}"
+                          for k, (a, b) in means.items())
+              + f"; selection {ratios}", flush=True)
+
+    probe = first_target_probe(torch, engine, capture, rg, rparams, rqs,
+                               cali, targets[0], settings)
+    for i, r in enumerate(probe):
+        print(f"  untimed probe {i + 1} of {targets[0]} ({RECON_ITERS} "
+              f"steps, host profiler): {r['s']:.3f} s, host CPU "
+              f"{r['cpu_s']:.3f} s, allocator retries {r['alloc_retries']}, "
+              f"device allocations {r['device_allocs']}, op self time "
+              f"{r['ops_self_s']:.3f} s; top ops " + ", ".join(
+                  f"{k} {t:.4f} s x{n}" for k, t, n in r["top"]),
+              flush=True)
+    t0 = time.perf_counter()
+    reset_counts()
+    rqs, hist, prefix = pipeline.reconstruct_model(
+        rg, rparams, rqs, targets, cali, settings, seed=0, batch_size=64,
+        device="cuda", on_node_done=on_done)
+    sync()
+    recon_counts = counts()
+    recon_s = time.perf_counter() - t0
+    print(f"  {len(targets)} targets in {recon_s:.2f} s; kernel launches "
+          f"during reconstruction {recon_counts}", flush=True)
+    if [r["target"] for r in recon_rows] != targets or len(targets) != 9:
+        raise AssertionError(f"targets {targets}")
+    for r in recon_rows:
+        vals = [v for k, v in r.items() if k.endswith("loss")] \
+            + [v for ab in r["traces"].values() for v in ab]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"{r['target']}: a loss is not finite")
+        for k, (first, last) in r["traces"].items():
+            if not last <= first:
+                raise AssertionError(f"{r['target']} {k} trace rose: "
+                                     f"{first} -> {last}")
+    phase("reconstruction", t0)
+
+    t0 = time.perf_counter()
+    pt = "model.layer4.1"
+    pflags = Flags(weight_on=frozenset(
+        u for t in targets[:targets.index(pt)]
+        for u in node_unit_names(find_node(rg, t))))
+    ci, co = capture.capture_io(rg, rparams, rqs, pt, cali[:PARITY_ROWS],
+                                pflags, Flags(), batch_size=64,
+                                device="cuda")
+    s_par = dataclasses.replace(settings, iters=PARITY_ITERS)
+    qs_card, m_card = engine.reconstruct_node(rg, rparams, pre_qs, pt, ci,
+                                              co, s_par, seed=5)
+    sync()
+    t1 = time.perf_counter()
+    qs_cpu, m_cpu = engine.reconstruct_node(
+        rg, Q.to_device(rparams, "cpu"), Q.to_device(pre_qs, "cpu"), pt,
+        ci.cpu(), co.cpu(), s_par, seed=5)
+    cpu_s = time.perf_counter() - t1
+    par = {}
+    for key, a, b in (("warm start", m_card["warmstart"]["rec_trace"],
+                       m_cpu["warmstart"]["rec_trace"]),
+                      ("joint", m_card["rec_trace"], m_cpu["rec_trace"]),
+                      ("refine", m_card["refine_trace"],
+                       m_cpu["refine_trace"])):
+        a = a.cpu().double()
+        b = b.double()
+        par[key] = float(((a - b).abs() / b.abs()).max())
+    flips = {}
+    for u in node_unit_names(find_node(rg, pt)):
+        wc, wh = qs_card[u].wq, qs_cpu[u].wq
+        flips[u] = max(
+            float((wc.st_index.cpu() != wh.st_index).float().mean()),
+            float(((wc.alpha.cpu() >= 0) != (wh.alpha >= 0)).float()
+                  .mean()))
+    print(f"  {pt}, {PARITY_ROWS} rows, {PARITY_ITERS} steps, card vs CPU "
+          f"({cpu_s:.2f} s on the CPU): trace max rel diff "
+          + ", ".join(f"{k} {v:.3g}" for k, v in par.items())
+          + f" (gate {PARITY_RTOL:g}); hardened code flips "
+          + ", ".join(f"{u.split('.')[-1]} {v:.4g}" for u, v in flips.items())
+          + f" (gate {PARITY_FLIPS:g})", flush=True)
+    if max(par.values()) > PARITY_RTOL or max(flips.values()) > PARITY_FLIPS:
+        raise AssertionError(f"card vs CPU reconstruction: {par} {flips}")
+    phase("recon parity", t0)
+
+    t0 = time.perf_counter()
+    rqs = Q.calibrate_acts(rg, rparams, rqs, cali[:RECON_CAL_ROWS], rcfg,
+                           flags=prefix, device="cuda")
+    aflags = Q.act_flags(rg, rcfg, base=wflags)
+    rx = torch.randn((BATCH, HW, HW, 3), generator=gen, device="cuda")
+    n_sites = len(Q.act_quant_sites(rg, rcfg))
+    n_uniform = sum(type(rqs[u.name].wq).__name__ == "UniformWQ"
+                    for u in iter_units(rg))
+    reset_counts()
+    rsim = forward(rg, rparams, rqs, rx, aflags, device="cuda")
+    sync()
+    sim_counts = counts()
+    print(f"  launches in one sim forward: {sim_counts} ({n_sites} act "
+          f"sites, {n_uniform} UniformWQ unit)", flush=True)
+    want = dict.fromkeys(sim_counts, 0)
+    want.update(fake_quant_act=17, fake_quant_weight=1)
+    if sim_counts != want or n_sites != 17 or n_uniform != 1:
+        raise AssertionError(f"sim forward launches {sim_counts}")
+    sim_ms = time_cuda(
+        lambda: forward(rg, rparams, rqs, rx, aflags, device="cuda"),
+        iters=3, warmup=1)
+    os.environ.update(SSQ_STEM_KERNEL="1", SSQ_PACKED="1", SSQ_DW_KERNEL="0",
+                      SSQ_STEM_1PASS="0")
+    rdp = deploy.build_deploy_params(rg, rparams, rqs, device="cuda")
+    rsteps = deploy.act_steps_from_qstate(rg, rqs)
+    rplan = deploy.make_deploy_plan(rg, rdp, rsteps, input_hw=(HW, HW))
+    rkinds = [v[0] for k, v in rplan.items() if not k.startswith("__")]
+    rcounts = {k: rkinds.count(k) for k in sorted(set(rkinds))}
+    if (rcounts.get("stem_fused"), rcounts.get("float"),
+            rcounts.get("int8", 0) + rcounts.get("bf16_codes", 0)) \
+            != (1, 1, 19):
+        raise AssertionError(f"recon plan kinds {rcounts}")
+    reset_counts()
+    rdep = deploy.deploy_forward(rg, rdp, rsteps, rx, plan=rplan,
+                                 device="cuda")
+    sync()
+    dep_counts = counts()
+    check_counts(dep_counts, int8_conv=19, stem_fused=1)
+    if not (bool(torch.isfinite(rsim).all())
+            and bool(torch.isfinite(rdep).all())):
+        raise AssertionError("recon sim or deploy logits not finite")
+    r_rel = logit_rel_mse(torch, rdep, rsim)
+    r_agree = float((rsim.argmax(-1) == rdep.argmax(-1)).double().mean())
+    r_margin = margin_reading(torch, rsim, rdep)
+    rdeploy_ms = time_cuda(lambda: deploy.deploy_forward(
+        rg, rdp, rsteps, rx, plan=rplan, device="cuda"), iters=5, warmup=1)
+    rxg = torch.round(rx[:8] * 8) / 8
+    rcard = deploy.deploy_forward(rg, rdp, rsteps, rxg, plan=rplan,
+                                  device="cuda")
+    rdp_cpu, rsteps_cpu = to_cpu(torch, deploy, rdp, rsteps)
+    rhost = deploy.deploy_forward(rg, rdp_cpu, rsteps_cpu, rxg.cpu(),
+                                  plan=rplan, device="cpu")
+    rc_rel = logit_rel_mse(torch, rcard.cpu(), rhost)
+    rc_same = bool(torch.equal(rcard.cpu().argmax(-1), rhost.argmax(-1)))
+    rratios = engine.selection_ratios(rqs, Q.unit_order(rg))
+    rgroups = sum(rqs[n].wq.st_index.numel() for n in rratios)
+    roverall = [sum(float(r[i]) * rqs[n].wq.st_index.numel()
+                    for n, r in rratios.items()) / rgroups
+                for i in range(len(SHIFT_TARGETS))]
+    print(f"  plan kinds {rcounts}; deploy launches int8_conv "
+          f"{dep_counts['int8_conv']}, stem {dep_counts['stem_fused']}; "
+          f"sim forward {sim_ms:.3f} ms/batch, deploy forward "
+          f"{rdeploy_ms:.3f} ms/batch; deploy vs sim: logit rel-MSE "
+          f"{r_rel:.4e} (gate {RELMSE_GATE:g}), top-1 agreement "
+          f"{r_agree:.4f} (margins {r_margin}); card vs CPU deploy on 8 "
+          f"grid images: rel-MSE "
+          f"{rc_rel:.4e} (gate {CARD_CPU_GATE:g}), same top-1 {rc_same}; "
+          f"selection ratios over {rgroups} groups: " + ", ".join(
+              f"{t:g}: {r:.4f}" for t, r in zip(SHIFT_TARGETS, roverall)),
+          flush=True)
+    if not r_rel <= RELMSE_GATE:
+        raise AssertionError(f"recon parity gate failed: rel-MSE {r_rel}")
+    if not (rc_rel <= CARD_CPU_GATE and rc_same):
+        raise AssertionError(f"recon card vs CPU deploy: rel-MSE {rc_rel}, "
+                             f"same top-1 {rc_same}")
+    phase("recon serving", t0)
+    return dict(cal_counts=cal_counts, recon_rows=recon_rows,
+                recon_s=recon_s, par=par, flips=flips, cpu_s=cpu_s,
+                rcounts=rcounts, sim_counts=sim_counts, sim_ms=sim_ms,
+                rdeploy_ms=rdeploy_ms, r_rel=r_rel, r_agree=r_agree,
+                r_margin=r_margin, probe=probe,
+                rc_rel=rc_rel, roverall=roverall)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -497,6 +991,7 @@ def main():
     from shiftedscalequantization_tpu_torch.graph import Flags, forward
     from shiftedscalequantization_tpu_torch.ops.cuda import _build, \
         depthwise, int_matmul, mbconv, packed, stem
+    from shiftedscalequantization_tpu_torch.ops.cuda import fake_quant as fq
     from shiftedscalequantization_tpu_torch.recon import engine
 
     t0 = time.perf_counter()
@@ -542,19 +1037,13 @@ def main():
           f"conversion) {time.perf_counter() - t0:.2f} s; plan kinds "
           f"{sorted(set(kinds))}", flush=True)
     x = torch.randn((BATCH, HW, HW, 3), generator=gen, device="cuda")
-    stem.stem_fused.launches = 0
-    packed.packed_quant_matmul.launches = 0
-    int_matmul.int8_conv.launches = 0
+    reset_counts()
     logits = deploy.deploy_forward(graph, dparams, steps, x, plan=plan,
                                    device="cuda")
     torch.cuda.synchronize()
-    launches = {"stem_fused": stem.stem_fused.launches,
-                "packed_quant_matmul": packed.packed_quant_matmul.launches,
-                "int8_conv": int_matmul.int8_conv.launches}
+    launches = counts()
     print(f"  launches in one deploy forward: {launches}", flush=True)
-    if launches != {"stem_fused": 1, "packed_quant_matmul": 3,
-                    "int8_conv": 16}:
-        raise AssertionError(f"kernel launches {launches}")
+    check_counts(launches, stem_fused=1, packed_quant_matmul=3, int8_conv=16)
     if tuple(logits.shape) != (BATCH, 1000) \
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError("deploy logits not finite or misshapen")
@@ -589,12 +1078,12 @@ def main():
         torch, gen, "mobilenetv2")
     mplan = deploy.make_deploy_plan(mg, mdparams, msteps, input_hw=(HW, HW))
     mkinds = [v[0] for k, v in mplan.items() if not k.startswith("__")]
-    counts = {k: mkinds.count(k) for k in sorted(set(mkinds))}
+    mkind_counts = {k: mkinds.count(k) for k in sorted(set(mkinds))}
     torch.cuda.synchronize()
-    print(f"  setup {time.perf_counter() - t0:.2f} s; plan kinds {counts}",
-          flush=True)
-    if counts != MNV2_KINDS:
-        raise AssertionError(f"MobileNetV2 plan kinds {counts}, want "
+    print(f"  setup {time.perf_counter() - t0:.2f} s; plan kinds "
+          f"{mkind_counts}", flush=True)
+    if mkind_counts != MNV2_KINDS:
+        raise AssertionError(f"MobileNetV2 plan kinds {mkind_counts}, want "
                              f"{MNV2_KINDS}")
     dw_shapes, pk_shapes = mnv2_path_shapes(mg, mdparams, mplan)
     phase("mnv2 setup", t0)
@@ -618,23 +1107,14 @@ def main():
 
     t0 = time.perf_counter()
     mx = torch.randn((BATCH, HW, HW, 3), generator=gen, device="cuda")
-    depthwise.dw_conv3x3_int8.launches = 0
-    packed.packed_quant_matmul.launches = 0
-    stem.stem_fused.launches = 0
-    mbconv.mbconv_fused.launches = 0
-    int_matmul.int8_conv.launches = 0
+    reset_counts()
     mlogits = deploy.deploy_forward(mg, mdparams, msteps, mx, plan=mplan,
                                     device="cuda")
     torch.cuda.synchronize()
-    mlaunches = {"dw_conv3x3_int8": depthwise.dw_conv3x3_int8.launches,
-                 "packed_quant_matmul": packed.packed_quant_matmul.launches,
-                 "stem_fused": stem.stem_fused.launches,
-                 "mbconv_fused": mbconv.mbconv_fused.launches,
-                 "int8_conv": int_matmul.int8_conv.launches}
+    mlaunches = counts()
     print(f"  launches in one deploy forward: {mlaunches}", flush=True)
-    if mlaunches != {"dw_conv3x3_int8": 16, "packed_quant_matmul": 34,
-                     "stem_fused": 0, "mbconv_fused": 0, "int8_conv": 0}:
-        raise AssertionError(f"kernel launches {mlaunches}")
+    check_counts(mlaunches, dw_conv3x3_int8=16, packed_quant_matmul=34,
+                 stem_fused=0, mbconv_fused=0, int8_conv=0)
     if tuple(mlogits.shape) != (BATCH, 1000) \
             or not bool(torch.isfinite(mlogits).all()):
         raise AssertionError("deploy logits not finite or misshapen")
@@ -709,21 +1189,14 @@ def main():
 
     t0 = time.perf_counter()
     sx = torch.randn((BATCH, HW, HW, 3), generator=gen, device="cuda")
-    for fn in (stem.stem_fused, packed.packed_quant_matmul,
-               int_matmul.int8_conv, int_matmul.quant_matmul,
-               depthwise.dw_conv3x3_int8, mbconv.mbconv_fused):
-        fn.launches = 0
+    reset_counts()
     slogits = deploy.deploy_forward(sg, sdparams, ssteps, sx, plan=splan,
                                     device="cuda")
     torch.cuda.synchronize()
-    slaunches = {"int8_conv": int_matmul.int8_conv.launches,
-                 "stem_fused": stem.stem_fused.launches,
-                 "packed_quant_matmul": packed.packed_quant_matmul.launches,
-                 "quant_matmul": int_matmul.quant_matmul.launches}
+    slaunches = counts()
     print(f"  launches in one deploy forward: {slaunches}", flush=True)
-    if slaunches != {"int8_conv": 19, "stem_fused": 1,
-                     "packed_quant_matmul": 0, "quant_matmul": 0}:
-        raise AssertionError(f"kernel launches {slaunches}")
+    check_counts(slaunches, int8_conv=19, stem_fused=1, packed_quant_matmul=0,
+                 quant_matmul=0)
     if tuple(slogits.shape) != (BATCH, 1000) \
             or not bool(torch.isfinite(slogits).all()):
         raise AssertionError("deploy logits not finite or misshapen")
@@ -750,8 +1223,10 @@ def main():
         raise AssertionError("sim logits not finite")
     s_rel = logit_rel_mse(torch, slogits, ssim)
     s_agree = float((ssim.argmax(-1) == slogits.argmax(-1)).double().mean())
+    s_margin = margin_reading(torch, ssim, slogits)
     print(f"  deploy vs sim: logit rel-MSE {s_rel:.4e} (gate "
-          f"{RELMSE_GATE:g}), top-1 agreement {s_agree:.4f}", flush=True)
+          f"{RELMSE_GATE:g}), top-1 agreement {s_agree:.4f} (margins "
+          f"{s_margin})", flush=True)
     if not s_rel <= RELMSE_GATE:
         raise AssertionError(f"parity gate failed: rel-MSE {s_rel}")
     sxg = torch.round(sx[:8] * 8) / 8
@@ -768,6 +1243,19 @@ def main():
         raise AssertionError(f"card vs CPU deploy: rel-MSE {sc_rel}, same "
                              f"top-1 {s_same}")
     phase("method parity", t0)
+
+    # ---- the fake-quant kernel ---------------------------------------
+    t0 = time.perf_counter()
+    fq_shapes = act_site_shapes(sg, sparams, sqstate, scfg, sx[:1], BATCH)
+    if sum(fq_shapes.values()) != 17:
+        raise AssertionError(f"act site shapes {fq_shapes}")
+    fq_rows = check_fake_quant(torch, gen, fq, fq_shapes)
+    fq_grad_rows = check_fake_quant_grad(torch, gen, fq)
+    phase("fake_quant kernel", t0)
+
+    # ---- the paper's reconstruction (the CLI's --mode fused) ----------
+    res = recon_phases(torch, gen)
+    cal_counts, sim_counts = res["cal_counts"], res["sim_counts"]
 
     src = "shiftedscalequantization_tpu_torch/csrc/"
 
@@ -836,6 +1324,22 @@ def main():
                          key=lambda r: r["bound_ms"])["bound_by"],
          "library_ms": per_forward(qmm_rows[:3], "library_ms")},
         # int8_conv: one method-path forward (19 units, two weight groups)
+        # fake_quant: one recon-path sim forward (17 act sites and the
+        # stem's 8-bit weight)
+        {"name": "fake_quant", "route": "cuda",
+         "source": src + "fake_quant.cu",
+         "replaces":
+             "shiftedscalequantization_tpu/ops/pallas/fake_quant.py:23",
+         "launches": sim_counts["fake_quant_act"]
+         + sim_counts["fake_quant_weight"],
+         "launches_by_route": {"act": sim_counts["fake_quant_act"],
+                               "weight": sim_counts["fake_quant_weight"]},
+         "max_abs_err": max(r["err"] for r in fq_rows),
+         "ms": per_forward(fq_rows, "ms"),
+         "plain_ms": per_forward(fq_rows, "plain_ms"),
+         "bound_ms": per_forward(fq_rows, "bound_ms"),
+         "bound_by": max(fq_rows, key=lambda r: r["bound_ms"])["bound_by"],
+         "library_ms": per_forward(fq_rows, "library_ms")},
         {"name": "int8_conv", "route": "cuda",
          "source": src + "int_matmul.cu",
          "replaces":
@@ -857,7 +1361,7 @@ def main():
                       "deploy_ms_per_batch": deploy_ms,
                       "deploy_sim_rel_mse": rel_mse,
                       "deploy_sim_top1_agreement": agree,
-                      "mnv2_plan_kinds": counts,
+                      "mnv2_plan_kinds": mkind_counts,
                       "mnv2_dw_shapes": dw_rows,
                       "mnv2_packed_shapes": mpk_rows,
                       "mnv2_mbconv_shapes": mb_rows,
@@ -873,9 +1377,28 @@ def main():
                       "method_deploy_ms_per_batch": sdeploy_ms,
                       "method_deploy_sim_rel_mse": s_rel,
                       "method_deploy_sim_top1_agreement": s_agree,
+                      "method_deploy_sim_margins": s_margin,
                       "method_card_cpu_rel_mse": sc_rel,
                       "method_selection_ratios": dict(zip(
-                          map(str, SHIFT_TARGETS), overall))}),
+                          map(str, SHIFT_TARGETS), overall)),
+                      "fake_quant_shapes": fq_rows,
+                      "fake_quant_backward": fq_grad_rows,
+                      "recon_calibration_launches": cal_counts,
+                      "recon_targets": res["recon_rows"],
+                      "recon_s": res["recon_s"],
+                      "recon_parity_trace_rel": res["par"],
+                      "recon_parity_flips": res["flips"],
+                      "recon_parity_cpu_s": res["cpu_s"],
+                      "recon_plan_kinds": res["rcounts"],
+                      "recon_sim_ms_per_batch": res["sim_ms"],
+                      "recon_deploy_ms_per_batch": res["rdeploy_ms"],
+                      "recon_deploy_sim_rel_mse": res["r_rel"],
+                      "recon_deploy_sim_top1_agreement": res["r_agree"],
+                      "recon_deploy_sim_margins": res["r_margin"],
+                      "recon_first_target_probe": res["probe"],
+                      "recon_card_cpu_rel_mse": res["rc_rel"],
+                      "recon_selection_ratios": dict(zip(
+                          map(str, SHIFT_TARGETS), res["roverall"]))}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,5 +1,6 @@
 """Explicit layer-graph IR and the fake-quant (sim) forward interpreter
-(PyTorch port of ``shiftedscalequantization_tpu/graph.py:47-386``).
+(PyTorch port of ``shiftedscalequantization_tpu/graph.py``), with the
+capture API that feeds reconstruction.
 
 A model is ``(graph, params)``: the graph is a tuple of frozen node specs
 (UnitSpec / BlockSpec / OpSpec), params a dict of tensors keyed by unit
@@ -155,7 +156,7 @@ def _activation(name: Optional[str], x):
     if name == "relu":
         return torch.relu(x)
     if name == "relu6":
-        return torch.clamp(x, 0.0, 6.0)
+        return Q.clip(x, 0.0, 6.0)
     raise ValueError(f"unknown activation {name}")
 
 
@@ -192,18 +193,33 @@ def global_avg_pool(x):
 # ---------------------------------------------------------------------------
 
 class _Ctx:
-    """Per-pass interpreter context: 'run' or 'init_act' (calibration)."""
+    """Per-pass interpreter context: 'run' or 'init_act' (calibration),
+    with the capture, multi-capture, dynamic weight gates and output
+    injection of the JAX interpreter."""
     __slots__ = ("flags", "mode", "act_bits", "act_sym", "act_method",
-                 "new_aq")
+                 "new_aq", "capture", "cap_in", "cap_out", "done", "dyn_wq",
+                 "multi", "multi_out", "inject")
 
     def __init__(self, flags, mode, act_bits=None, act_sym=False,
-                 act_method="mse"):
+                 act_method="mse", capture=None, dyn_wq=None, multi=None,
+                 inject=None):
         self.flags = flags
         self.mode = mode
         self.act_bits = act_bits
         self.act_sym = act_sym
         self.act_method = act_method
         self.new_aq = {}
+        self.capture = capture
+        self.cap_in = None
+        self.cap_out = None
+        self.done = False
+        # unit name -> bool tensor: quantize that unit's weight where true
+        self.dyn_wq = dyn_wq or {}
+        # node names whose (input, output) to record
+        self.multi = multi
+        self.multi_out = {}
+        # (name, tensor): that node's output is replaced by the tensor
+        self.inject = inject
 
 
 def _apply_act_quant(name: str, x, aq: Optional[QParams], ctx: _Ctx):
@@ -223,7 +239,10 @@ def _unit_forward(spec: UnitSpec, p, uq: UnitQuant, x, ctx: _Ctx):
     if ctx.mode == "init_act":
         aq_on = spec.name in ctx.act_bits and not spec.disable_act_quant
     w, b = p["w"], p.get("b")
-    if wq_on:
+    if spec.name in ctx.dyn_wq:
+        w = torch.where(ctx.dyn_wq[spec.name],
+                        wquant.apply_weight_quant(uq.wq, w), w)
+    elif wq_on:
         w = wquant.apply_weight_quant(uq.wq, w)
     if spec.kind == "conv":
         out = conv2d(x, w, b, spec.stride, spec.padding, spec.groups)
@@ -237,6 +256,30 @@ def _unit_forward(spec: UnitSpec, p, uq: UnitQuant, x, ctx: _Ctx):
     return out
 
 
+def _capture_pre(name, x, ctx: _Ctx):
+    if ctx.capture == name:
+        ctx.cap_in = x
+    if ctx.multi is not None and name in ctx.multi:
+        ctx.multi_out.setdefault(name, [None, None])[0] = x
+
+
+def _capture_post(name, out, ctx: _Ctx):
+    if ctx.capture == name:
+        ctx.cap_out = out
+        ctx.done = True
+    if ctx.multi is not None and name in ctx.multi:
+        ctx.multi_out.setdefault(name, [None, None])[1] = out
+    if ctx.inject is not None and ctx.inject[0] == name:
+        return ctx.inject[1]
+    return out
+
+
+def _unit_node(spec, params, qstate, x, ctx):
+    _capture_pre(spec.name, x, ctx)
+    out = _unit_forward(spec, params[spec.name], qstate[spec.name], x, ctx)
+    return _capture_post(spec.name, out, ctx)
+
+
 def _node_forward(node: Node, params, qstate, x, ctx: _Ctx):
     if isinstance(node, OpSpec):
         if node.op == "maxpool":
@@ -247,16 +290,16 @@ def _node_forward(node: Node, params, qstate, x, ctx: _Ctx):
             return x.reshape(x.shape[0], -1)
         raise ValueError(f"unknown op {node.op}")
     if isinstance(node, UnitSpec):
-        return _unit_forward(node, params[node.name], qstate[node.name], x,
-                             ctx)
+        return _unit_node(node, params, qstate, x, ctx)
+    _capture_pre(node.name, x, ctx)
     residual = x
     if node.downsample is not None:
-        residual = _unit_forward(node.downsample,
-                                 params[node.downsample.name],
-                                 qstate[node.downsample.name], x, ctx)
+        residual = _unit_node(node.downsample, params, qstate, x, ctx)
     out = x
     for u in node.units:
-        out = _unit_forward(u, params[u.name], qstate[u.name], out, ctx)
+        out = _unit_node(u, params, qstate, out, ctx)
+        if ctx.done:
+            return out
     if node.residual:
         out = out + residual
     out = _activation(node.post_activation, out)
@@ -265,21 +308,139 @@ def _node_forward(node: Node, params, qstate, x, ctx: _Ctx):
         aq_on = node.name in ctx.act_bits and node.block_act_quant
     if aq_on:
         out = _apply_act_quant(node.name, out, qstate.get(node.name), ctx)
-    return out
+    return _capture_post(node.name, out, ctx)
 
 
 def _run(graph, params, qstate, x, ctx, device):
-    x = torch.as_tensor(x, device=resolve_device(device))
+    """The whole graph without gradients; stops after a captured node."""
+    out = torch.as_tensor(x, device=resolve_device(device))
     with torch.no_grad(), _fp32():
         for node in graph:
-            x = _node_forward(node, params, qstate, x, ctx)
-    return x
+            out = _node_forward(node, params, qstate, out, ctx)
+            if ctx.done:
+                break
+    return out
 
 
 def forward(graph: Graph, params, qstate, x, flags: Flags = Flags(),
-            device="cuda"):
-    """Run the model (NHWC input) and return its output."""
-    return _run(graph, params, qstate, x, _Ctx(flags, "run"), device)
+            capture: Optional[str] = None, device="cuda"):
+    """Run the model (NHWC input) and return its output. If ``capture``
+    names a node (a top-level node, or a unit inside a block), return that
+    node's (input, output) under ``flags`` instead and skip the rest of the
+    network."""
+    ctx = _Ctx(flags, "run", capture=capture)
+    out = _run(graph, params, qstate, x, ctx, device)
+    if ctx.done:
+        return ctx.cap_in, ctx.cap_out
+    if capture is not None:
+        raise KeyError(f"capture target {capture!r} not found in graph")
+    return out
+
+
+def forward_multi_capture(graph: Graph, params, qstate, x, dyn_wq: dict,
+                          targets, flags: Flags = Flags(), device="cuda"):
+    """Full forward recording (input, output) of every node in
+    ``targets``, with per-unit weight-quant gates ``dyn_wq`` (unit name ->
+    bool tensor) on top of ``flags``. Returns {name: (node_in, node_out)}."""
+    ctx = _Ctx(flags, "run", dyn_wq=dyn_wq, multi=frozenset(targets))
+    _run(graph, params, qstate, x, ctx, device)
+    missing = set(targets) - set(ctx.multi_out)
+    if missing:
+        raise KeyError(f"capture targets not found: {missing}")
+    return {k: (v[0], v[1]) for k, v in ctx.multi_out.items()}
+
+
+def apply_node(node: Node, params, qstate, x, flags: Flags = Flags()):
+    """Forward one unit or block on its own input ``x`` (a tensor, on the
+    device the node runs on): the subject of a reconstruction step.
+    Gradients flow; convs and matmuls run in full float32 (TF32 off) here,
+    and a caller that differentiates keeps ``_fp32()`` around its backward
+    too."""
+    with _fp32():
+        return _node_forward(node, params, qstate, x, _Ctx(flags, "run"))
+
+
+def apply_node_multi_capture(node: Node, params, qstate, x, flags: Flags,
+                             targets):
+    """apply_node, also recording (input, output) of the named inner sites
+    (units and/or the node itself). Returns (out, {name: (in, out)})."""
+    ctx = _Ctx(flags, "run", multi=frozenset(targets))
+    with _fp32():
+        out = _node_forward(node, params, qstate, x, ctx)
+    return out, {k: (v[0], v[1]) for k, v in ctx.multi_out.items()}
+
+
+def forward_from(graph: Graph, params, qstate, after: str, t,
+                 flags: Flags = Flags()):
+    """Resume the forward from ``t``, the output of top-level node
+    ``after``. Gradients flow (the input to differentiate is ``t``); for
+    targets nested inside blocks use forward_inject."""
+    ctx = _Ctx(flags, "run")
+    seen = False
+    out = t
+    with _fp32():
+        for node in graph:
+            if not seen:
+                seen = node.name == after
+                continue
+            out = _node_forward(node, params, qstate, out, ctx)
+    if not seen:
+        raise KeyError(after)
+    return out
+
+
+def forward_inject(graph: Graph, params, qstate, x, target: str, t,
+                   flags: Flags = Flags()):
+    """Full forward with ``target``'s output replaced by ``t``: downstream
+    is a function of ``t``, so a loss on the result differentiates at that
+    intermediate (units nested inside blocks included). Gradients flow."""
+    ctx = _Ctx(flags, "run", inject=(target, t))
+    out = x
+    with _fp32():
+        for node in graph:
+            out = _node_forward(node, params, qstate, out, ctx)
+    return out
+
+
+def prefix_flags_till(graph: Graph, target: str, act_quant: bool = False,
+                      base: Flags = Flags()) -> Flags:
+    """Weight (and optionally act) quant on for every unit up to and
+    including ``target``, in module-registration order: a unit target
+    inside a block quantizes only the block units before it."""
+    w_on, a_on = set(base.weight_on), set(base.act_on)
+
+    def done():
+        return dataclasses.replace(base, weight_on=frozenset(w_on),
+                                   act_on=frozenset(a_on))
+
+    for node in graph:
+        if isinstance(node, OpSpec):
+            continue
+        units = [node] if isinstance(node, UnitSpec) else \
+            list(node.units) + ([node.downsample] if node.downsample else [])
+        for u in units:
+            w_on.add(u.name)
+            if act_quant:
+                a_on.add(u.name)
+            if u.name == target:
+                return done()
+        if isinstance(node, BlockSpec):
+            if act_quant:
+                a_on.add(node.name)
+            if node.name == target:
+                return done()
+    return done()
+
+
+def node_unit_names(node: Node):
+    """Unit names inside a node (downsample last), in module-registration
+    order."""
+    if isinstance(node, UnitSpec):
+        return [node.name]
+    names = [u.name for u in node.units]
+    if node.downsample is not None:
+        names.append(node.downsample.name)
+    return names
 
 
 def init_act_quant(graph: Graph, params, qstate, x, flags: Flags,

@@ -45,6 +45,8 @@ SIGNATURES = {
     # codes, w (S, N, K), table, acc_offset, delta, out, S, B, H, W, C, KH,
     # KW, SH, SW, PH, PW, N, pad, vec, stream
     "ssq_int8_conv": [_P] * 6 + [_I] * 14 + [_P],
+    # x, delta, zp, out, R, C, per_row, lo, hi, stream
+    "ssq_fake_quant": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -6,6 +6,17 @@ Rounding is half-to-even (``torch.round``), as ``jnp.round`` is. The MSE
 scale search keeps the reference's 80-point shrink grid, but walks the grid
 in a loop so that a calibration tensor of any size needs one extra copy of
 itself at a time instead of 80.
+
+Every clamp on a differentiated path is ``clip``, which has ``jnp.clip``'s
+gradient: 1 strictly inside the bounds, 1/2 where the value equals a bound
+(``jnp.clip`` is ``minimum(maximum(x, lo), hi)``, and JAX splits a tie of
+``maximum``/``minimum`` evenly), 0 outside. ``torch.clamp`` passes the full
+gradient at the bounds, which would double the gradient of every code that
+lands exactly on ``lo`` or ``hi`` (every post-ReLU zero at zero point 0).
+
+``fake_quant`` runs the fake-quant kernel's autograd Function
+(``ops/cuda/fake_quant.py``): the CUDA kernel on the card, its plain
+version on the CPU, and a backward with the same tie rule.
 """
 from __future__ import annotations
 
@@ -17,6 +28,32 @@ import torch
 # clamp(sigmoid(a) * (ZETA - GAMMA) + GAMMA, 0, 1)
 GAMMA = -0.1
 ZETA = 1.1
+
+
+def clip_grad(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip``'s derivative at ``x``: 1 inside (lo, hi), 1/2 at
+    either bound, 0 outside (and at NaN)."""
+    inside = (x > lo) & (x < hi)
+    tie = (x == lo) | (x == hi)
+    return inside.to(x.dtype) + 0.5 * tie.to(x.dtype)
+
+
+class _Clip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return g * clip_grad(x, *ctx.bounds), None, None
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``torch.clamp``'s values with ``jnp.clip``'s gradient (clip_grad)."""
+    return _Clip.apply(x, lo, hi)
 
 
 def round_ste(x: torch.Tensor) -> torch.Tensor:
@@ -60,11 +97,15 @@ class QParams:
 
 
 def fake_quant(x: torch.Tensor, qp: QParams) -> torch.Tensor:
-    """STE fake quantization: clamp(round(x/delta)+zp) dequantized."""
-    lo, hi = qp.qrange()
-    x_int = round_ste(x / qp.delta) + qp.zero_point
-    x_q = torch.clamp(x_int, lo, hi)
-    return (x_q - qp.zero_point) * qp.delta
+    """STE fake quantization: clip(round(x/delta)+zp) dequantized, through
+    the fake-quant kernel. ``qp`` is per tensor (one delta) or per leading
+    row (a delta per ``x.shape[0]``, as per-out-channel weights)."""
+    from .cuda import fake_quant as FQ   # the kernel module imports this one
+    if qp.delta.numel() == 1:
+        return FQ.fake_quant_act(x, qp.delta, qp.zero_point, qp.n_bits,
+                                 qp.sym)
+    return FQ.fake_quant_weight(x, qp.delta, qp.zero_point, qp.n_bits,
+                                qp.sym)
 
 
 def quantize_int(x: torch.Tensor, qp: QParams, dtype=torch.int8):
@@ -199,14 +240,13 @@ def init_act_qparams(x: torch.Tensor, n_bits: int, sym: bool = False,
 
 def rectified_sigmoid(alpha: torch.Tensor) -> torch.Tensor:
     """clamp(sigmoid(a) * (zeta - gamma) + gamma, 0, 1)."""
-    return torch.clamp(torch.sigmoid(alpha) * (ZETA - GAMMA) + GAMMA,
-                       0.0, 1.0)
+    return clip(torch.sigmoid(alpha) * (ZETA - GAMMA) + GAMMA, 0.0, 1.0)
 
 
 def rectified_softmax(alpha: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """clamp(softmax(a) * (zeta - gamma) + gamma, 0, 1)."""
-    return torch.clamp(torch.softmax(alpha, dim=axis) * (ZETA - GAMMA)
-                       + GAMMA, 0.0, 1.0)
+    return clip(torch.softmax(alpha, dim=axis) * (ZETA - GAMMA) + GAMMA,
+                0.0, 1.0)
 
 
 def inverse_rectified_sigmoid(rest: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ Each quantizer is a plain dataclass whose tensors are its state and whose
 mode switches (``soft``, ``hard_targets``, ``dequant``, ...) are Python
 values; ``apply_weight_quant`` calls it on a weight:
 
-  * UniformWQ      -- plain STE uniform affine fake-quant
+  * UniformWQ      -- plain STE uniform affine fake-quant (the fake-quant
+                      kernel, ``ops/cuda/fake_quant.py``)
   * AdaRoundWQ     -- AdaRound learned rounding, optionally on baked shifts
                       (``st_index`` into ``shift_targets``)
   * ShiftedScaleWQ -- the paper's shifted-scale selection with AdaRound
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from . import quant as Q
+from .cuda.fake_quant import fake_quant_weight
 from .quant import QParams
 
 
@@ -53,11 +55,8 @@ class UniformWQ:
     qp: QParams
 
     def __call__(self, w: torch.Tensor) -> torch.Tensor:
-        delta = _bshape(self.qp.delta, w)
-        zp = _bshape(self.qp.zero_point, w)
-        lo, hi = self.qp.qrange()
-        x_int = Q.round_ste(w / delta) + zp
-        return (torch.clamp(x_int, lo, hi) - zp) * delta
+        return fake_quant_weight(w, self.qp.delta, self.qp.zero_point,
+                                 self.qp.n_bits, self.qp.sym)
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +104,7 @@ class AdaRoundWQ:
         else:
             x_int = x_floor + (self.alpha >= 0).to(w.dtype)
         lo, hi = self._clip_range()
-        x_q = torch.clamp(x_int + zp, lo, hi)
+        x_q = Q.clip(x_int + zp, lo, hi)
         return (x_q - zp) * delta
 
 
@@ -174,11 +173,11 @@ class ShiftedScaleWQ:
             # AdaRoundWQ with st_index = argmax (shifted_to_baked)
             sts = _targets(self.shift_targets, w).reshape(
                 (-1,) + (1,) * w.ndim)
-            vals = (torch.clamp(self.x_q + off[None] + zp[None], lo, hi)
+            vals = (Q.clip(self.x_q + off[None] + zp[None], lo, hi)
                     - zp[None]) * (delta[None] * sts)
             return _mix(vals, self._selection(w.dtype))
         x_int = self.mix_codes(w.dtype) + off
-        x_q = torch.clamp(x_int + zp, lo, hi)
+        x_q = Q.clip(x_int + zp, lo, hi)
         return (x_q - zp) * delta
 
     def effective_delta(self, w):
@@ -352,7 +351,7 @@ class InpScaleWQ:
         delta = _bshape(self.qp.delta, w)
         zp = torch.round(_bshape(self.raw_zero_point, w) / delta)
         x_int = Q.round_ste(w / self.inp_scale / delta) + zp
-        x_q = torch.clamp(x_int, 0, self.qp.n_levels - 1)
+        x_q = Q.clip(x_int, 0, self.qp.n_levels - 1)
         return (x_q - zp) * delta * self.inp_scale
 
 

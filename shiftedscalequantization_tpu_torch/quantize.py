@@ -1,5 +1,5 @@
 """Quantized-model construction and state (PyTorch port of
-``shiftedscalequantization_tpu/quantize.py:25-192``).
+``shiftedscalequantization_tpu/quantize.py``).
 
 BN-fold once, derive an explicit qstate dict, and express "quant on/off" as
 Flags values. Head and stem stay 8-bit (``use_8bit_head_stem``).
@@ -9,11 +9,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import fold_bn as fb
 from ._device import resolve_device
-from .graph import BlockSpec, Flags, Graph, UnitQuant, UnitSpec, \
+from .graph import BlockSpec, Flags, Graph, OpSpec, UnitQuant, UnitSpec, \
     init_act_quant, iter_units
 from .ops import quant as Q
 from .ops import wquant as W
@@ -64,6 +65,27 @@ def _head_stem_overrides(order, cfg: QuantConfig):
     if not cfg.use_8bit_head_stem or len(order) < 2:
         return {}, {}
     return {order[0]: 8, order[-1]: 8}, {order[0]: 8, order[-2]: 8}
+
+
+def reconstruction_targets(graph: Graph, block_level: bool = True):
+    """Nodes to reconstruct, in order; the first unit is skipped (the
+    8-bit stem is not reconstructed). Blocks without a block act site, and
+    every block when ``block_level`` is False, are reconstructed unit by
+    unit."""
+    first = unit_order(graph)[0]
+    targets = []
+    for node in graph:
+        if isinstance(node, UnitSpec):
+            if node.name != first:
+                targets.append(node.name)
+        elif isinstance(node, BlockSpec):
+            if block_level and node.block_act_quant:
+                targets.append(node.name)
+            else:
+                targets.extend(u.name for u in node.units)
+                if node.downsample is not None:
+                    targets.append(node.downsample.name)
+    return targets
 
 
 def act_quant_sites(graph: Graph, cfg: QuantConfig,
@@ -129,15 +151,89 @@ def prepare_model(graph: Graph, raw_params: dict, cfg: QuantConfig,
     """BN-fold + weight quantizer init. ``raw_params`` may hold tensors
     on any device or numpy arrays; they are moved to ``device``. Returns
     (folded_params, qstate)."""
-    dev = resolve_device(device)
-    raw = {name: _to_device(p, dev) for name, p in raw_params.items()}
+    raw = to_device(raw_params, resolve_device(device))
     with torch.no_grad():
         folded = fb.fold_bn(raw)
         qstate = build_qstate(graph, folded, cfg)
     return folded, qstate
 
 
-def _to_device(tree, dev):
+def to_device(tree, device):
+    """A copy of params or qstate (dicts, UnitQuant and quantizer
+    dataclasses, tensors or numpy arrays) with every array a tensor on
+    ``device``; other leaves are kept."""
+    if torch.is_tensor(tree) or isinstance(tree, np.ndarray):
+        return torch.as_tensor(tree, device=device)
     if isinstance(tree, dict):
-        return {k: _to_device(v, dev) for k, v in tree.items()}
-    return torch.as_tensor(tree, device=dev)
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: to_device(getattr(tree, f.name), device)
+            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def harmonize_residual_chains(graph: Graph, qstate):
+    """Share one act step across every siteless residual chain.
+
+    Blocks without a block act site (MobileNetV2's and MNASNet's residual
+    adds) leave the add unquantized, each operand on its own unit grid.
+    This rewrites each chain's member act quantizers to the chain's largest
+    delta, rescaling zero_point to keep the covered range anchored, so the
+    add is exact in code space. Returns (new_qstate, {site: d_max /
+    d_site}); a ratio of 1.0 means the site already had the chain's step.
+    """
+    def scalar_aq(name):
+        uq = qstate.get(name)
+        if not isinstance(uq, UnitQuant) or uq.aq is None:
+            return None
+        return uq.aq if uq.aq.delta.numel() == 1 else None
+
+    parent = {}
+
+    def find(a):
+        parent.setdefault(a, a)
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    current = None          # site name of the tensor flowing forward
+    for node in graph:
+        if isinstance(node, OpSpec):
+            if node.op in ("gap", "avgpool", "flatten"):
+                current = None
+            continue
+        if isinstance(node, UnitSpec):
+            current = node.name if scalar_aq(node.name) else None
+            continue
+        last = node.units[-1].name
+        block_site = qstate.get(node.name) is not None
+        if (node.residual and node.downsample is None
+                and node.post_activation is None and not block_site
+                and current is not None and scalar_aq(last) is not None):
+            parent[find(current)] = find(last)
+            current = last
+        elif not node.residual and node.post_activation is None \
+                and not block_site:
+            current = last if scalar_aq(last) is not None else None
+        else:
+            current = node.name if block_site else None
+
+    groups = {}
+    for name in parent:
+        groups.setdefault(find(name), []).append(name)
+    qstate = dict(qstate)
+    ratios = {}
+    for members in groups.values():
+        if len(members) < 2:
+            continue
+        d_max = max(float(qstate[m].aq.delta) for m in members)
+        for m in members:
+            aq = qstate[m].aq
+            d_old = float(aq.delta)
+            ratios[m] = d_max / d_old
+            qstate[m] = dataclasses.replace(qstate[m], aq=dataclasses.replace(
+                aq, delta=torch.full_like(aq.delta, d_max),
+                zero_point=torch.round(aq.zero_point * (d_old / d_max))))
+    return qstate, ratios

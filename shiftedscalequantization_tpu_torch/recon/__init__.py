@@ -1,3 +1,6 @@
 """Block reconstruction (PyTorch port of
-``shiftedscalequantization_tpu/recon``): so far the quantizer plumbing of
-the engine."""
+``shiftedscalequantization_tpu/recon``): capture, the fused engine and the
+sequential pipeline."""
+from .capture import capture_io
+from .engine import ReconSettings, reconstruct_node
+from .pipeline import reconstruct_model

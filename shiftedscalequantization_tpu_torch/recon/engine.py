@@ -1,22 +1,48 @@
-"""Reconstruction engine, quantizer plumbing (PyTorch port of
-``shiftedscalequantization_tpu/recon/engine.py:48-311, 690-709``).
+"""Block reconstruction engine (PyTorch port of
+``shiftedscalequantization_tpu/recon/engine.py:48-709``).
 
-Ported so far: the settings, the swap of each unit's weight quantizer for
-the trainable form of a mode (``_init_quantizers``), the theta dict of
-trainable tensors and its re-insertion, hardening, and the shift-selection
-ratios. The optimizer loop, the losses and the activation phases are not
-ported yet. ``ReconSettings`` keeps the JAX field names; ``chunk`` (the
-TPU scan length) has no counterpart.
+One reconstruction optimizes a node's quantizer logits (the theta dict)
+with Adam against cached FP outputs, then hardens them:
+
+  * mode 'fused': the paper's joint shift + round reconstruction, with the
+    warm-start shift pre-solve (``warmstart_frac``) and the post-harden
+    rounding-only refine (``post_round_frac``) for coarse candidate sets;
+  * mode 'shift': the selection alone on full fake-quant candidates (the
+    warm start's pre-solve);
+  * mode 'round_refine': the rounding logits of baked AdaRound units.
+
+The loop is a plain Python loop with ``torch.optim.Adam(lr=s.lr)``, which
+computes optax.adam's update (the same moments and bias corrections, eps
+outside the square root). ``_chunked_scan`` and ``_canonicalize`` of the
+JAX engine only cut TPU dispatch and compile costs and have no
+counterpart. Minibatch rows come from ``torch.randperm(n, generator=g)`` of
+a CPU generator seeded per node (``seed``), so the card and the CPU draw
+the same rows; the JAX engine's ``fold_in(key, 877)`` / ``(key, 991)``
+sub-streams of the warm start and the refine are ``_fold_in(seed, 877)`` /
+``(seed, 991)``. The whole step runs with TF32 off (``graph._fp32``), its
+backward included.
+
+Not ported yet, each raising NotImplementedError that names its ROADMAP
+item: modes 'brecq', 'round' and 'two_phase', the activation phases, and
+the Fisher loss forms (which need ``capture_grads``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..graph import UnitQuant
+from ..graph import BlockSpec, Flags, UnitQuant, _fp32, apply_node, \
+    find_node, node_unit_names
+from ..ops import quant as Q
 from ..ops import wquant as W
+
+NOT_PORTED = ("is not ported yet (ROADMAP.md, 'Open items', queue 1: "
+              "{item})")
+MODES_ITEM = "brecq, two_phase and the act phases"
+FISHER_ITEM = "capture_grads and the Fisher losses"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +76,23 @@ class ReconSettings:
     warmstart_freeze: bool = True
     warmstart_lr: Optional[float] = None
     act_shift_targets: tuple = (1.0, 0.5)
+
+
+def lp_loss_cl(pred, tgt, p):
+    """lp_loss on channels-last tensors: sum over the channel axis, mean
+    over the rest."""
+    return (torch.abs(pred - tgt) ** p).sum(dim=-1).mean()
+
+
+def rec_loss_fn(pred, tgt, grad, kind: str, p: float):
+    """Reconstruction loss: 'mse' is lp_loss_cl; the Fisher forms need
+    cached gradients (capture_grads), not ported yet."""
+    if kind == "mse" or grad is None:
+        return lp_loss_cl(pred, tgt, p)
+    if kind in ("fisher_diag", "fisher_full"):
+        raise NotImplementedError(f"rec_loss {kind!r} "
+                                  + NOT_PORTED.format(item=FISHER_ITEM))
+    raise ValueError(kind)
 
 
 def resolve_dequant(dequant: str, shift_targets) -> str:
@@ -188,3 +231,190 @@ def selection_ratios(qstate, unit_names):
         counts = torch.bincount(idx.reshape(-1), minlength=n_s)
         out[name] = counts.to(torch.float32) / idx.numel()
     return out
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def _reg_terms(qstate, unit_names, step: float, s: ReconSettings):
+    """Temperature-scheduled regularizers at ``step`` (a float), gated off
+    before ``s.iters * s.warmup``. 'fused': the rounding regularizer at
+    b(step) over iters plus the selection regularizer at b2(step) over a
+    3/4 horizon; 'shift': the selection's entropy (AdaRound units: the
+    rounding regularizer); 'round_refine': the rounding regularizer. The
+    temperatures are float32, as in the JAX engine, and reach the device
+    as numbers (no host-to-device copy)."""
+    gate = float(step >= s.iters * s.warmup)
+    b = float(Q.linear_temp_decay(step, s.iters, s.warmup, s.b_range[0],
+                                  s.b_range[1]))
+    r = sreg = torch.zeros((), device=qstate[unit_names[0]].wq.qp.delta
+                           .device)
+    if s.mode == "fused":
+        b2 = float(Q.linear_temp_decay(step, s.iters * 3 / 4, s.warmup,
+                                       s.b_range[0], s.b_range[1]))
+        for name in unit_names:
+            wq = qstate[name].wq
+            if isinstance(wq, W.AdaRoundWQ):   # high-bit shift-skip unit
+                r = r + Q.round_regularizer(Q.rectified_sigmoid(wq.alpha),
+                                            b)
+                continue
+            r = r + Q.round_regularizer(Q.rectified_sigmoid(wq.beta), b)
+            sreg = sreg + Q.round_regularizer(wq.soft_targets(), b2)
+        return gate * (s.lmda_r * r + s.lmda_s * sreg)
+    if s.mode == "round_refine":
+        for name in unit_names:
+            r = r + Q.round_regularizer(
+                Q.rectified_sigmoid(qstate[name].wq.alpha), b)
+        return gate * s.lmda_r * r
+    if s.mode == "shift":
+        for name in unit_names:
+            wq = qstate[name].wq
+            if isinstance(wq, W.AdaRoundWQ):
+                r = r + s.lmda_r * Q.round_regularizer(
+                    Q.rectified_sigmoid(wq.alpha), b)
+                continue
+            p = wq.soft_targets()
+            r = r + s.lmda_s * -(p * torch.log(p + 1e-10)).sum()
+        return gate * r
+    raise ValueError(s.mode)
+
+
+# ---------------------------------------------------------------------------
+# the loop
+# ---------------------------------------------------------------------------
+
+def _fold_in(seed: int, data: int) -> int:
+    """A new seed from (seed, data), for the sub-streams of one node."""
+    return int(np.random.SeedSequence([seed, data]).generate_state(
+        1, np.uint64)[0] >> 1)
+
+
+def _eval_rec(node, params, qstate, flags, xb, yb, s, p_norm):
+    with torch.no_grad():
+        pred = apply_node(node, params, qstate, xb, flags)
+        return rec_loss_fn(pred, yb, None, s.rec_loss, p_norm)
+
+
+def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
+                     cached_out, s: ReconSettings, seed: int = 0):
+    """Reconstruct one node from its cached (input, FP output) rows; the
+    node runs where the caches lie. Returns (new_qstate, metrics):
+    ``rec_trace`` (the reconstruction loss of each step, a tensor),
+    ``init_loss`` (the loss of the incoming quantizers), ``soft_loss`` and
+    ``hard_loss`` on the first batch, ``selection_ratio`` and, when they
+    ran, ``warmstart`` and the refine's ``hard_loss_prerefine`` /
+    ``refine_trace``."""
+    if s.mode not in ("fused", "shift", "round_refine"):
+        raise NotImplementedError(f"reconstruction mode {s.mode!r} "
+                                  + NOT_PORTED.format(item=MODES_ITEM))
+    if s.rec_loss != "mse":
+        raise NotImplementedError(f"rec_loss {s.rec_loss!r} "
+                                  + NOT_PORTED.format(item=FISHER_ITEM))
+    node = find_node(graph, node_name)
+    is_block = isinstance(node, BlockSpec)
+    unit_names = node_unit_names(node)
+    p_norm = s.p if s.p is not None else (2.0 if is_block else 1.0)
+    xb0 = cached_inp[: s.batch_size].float()
+    yb0 = cached_out[: s.batch_size].float()
+    init_loss = _eval_rec(node, params, qstate,
+                          Flags(weight_on=frozenset(unit_names),
+                                output_affine=s.opt_output_affine),
+                          xb0, yb0, s, p_norm)
+
+    # fused warm start: a short shift pre-solve whose solved selection
+    # re-seeds the fused init (coarse candidate sets only)
+    warm_alphas = warm_metrics = None
+    ws_iters = 0
+    if (s.mode == "fused" and s.warmstart_frac > 0 and not s.auto_candidates
+            and resolve_dequant(s.fused_dequant, s.shift_targets)
+            == "effective"):
+        ws_iters = int(s.iters * s.warmstart_frac)
+        if ws_iters > 0:
+            s_ws = dataclasses.replace(
+                s, mode="shift", iters=ws_iters,
+                lr=s.warmstart_lr if s.warmstart_lr else s.lr)
+            qs_ws, warm_metrics = reconstruct_node(
+                graph, params, qstate, node_name, cached_inp, cached_out,
+                s_ws, _fold_in(seed, 877))
+            warm_alphas = {n: qs_ws[n].wq.alpha for n in unit_names
+                           if isinstance(qs_ws[n].wq, W.ShiftedScaleWQ)}
+            s = dataclasses.replace(s, iters=s.iters - ws_iters)
+
+    qstate, theta = _init_quantizers(params, qstate, unit_names, s,
+                                     warm_alphas=warm_alphas)
+
+    # effective-dequant fused runs keep post_round_frac of the budget for
+    # a rounding-only refine on the hardened selection, when hardening
+    # leaves every unit an AdaRoundWQ
+    def _refinable(wq):
+        return isinstance(wq, W.AdaRoundWQ) or (
+            isinstance(wq, W.ShiftedScaleWQ) and wq.codes
+            and wq.dequant == "effective")
+
+    refine_iters = 0
+    if s.mode == "fused" and s.post_round_frac > 0 and any(
+            isinstance(qstate[n].wq, W.ShiftedScaleWQ)
+            and qstate[n].wq.dequant == "effective" for n in unit_names) \
+            and all(_refinable(qstate[n].wq) for n in unit_names):
+        refine_iters = int(s.iters * s.post_round_frac)
+    if refine_iters:
+        s = dataclasses.replace(s, iters=s.iters - refine_iters)
+
+    flags = Flags(weight_on=frozenset(unit_names),
+                  output_affine=s.opt_output_affine)
+    theta = {n: {k: v.detach().clone().requires_grad_(True)
+                 for k, v in t.items()} for n, t in theta.items()}
+    leaves = [v for t in theta.values() for v in t.values()]
+    metrics = {"init_loss": init_loss}
+    if s.iters > 0:
+        opt = torch.optim.Adam(leaves, lr=s.lr)
+        gen = torch.Generator().manual_seed(seed)
+        n = cached_inp.shape[0]
+        # every step's rows, drawn in order on the CPU and copied once
+        rows = torch.stack([torch.randperm(n, generator=gen)[: s.batch_size]
+                            for _ in range(s.iters)]).to(cached_inp.device)
+        trace = []
+        with _fp32():
+            for i, idx in enumerate(rows):
+                xb = cached_inp[idx].float()
+                yb = cached_out[idx].float()
+                qs = _insert_theta(qstate, theta)
+                rec = rec_loss_fn(apply_node(node, params, qs, xb, flags),
+                                  yb, None, s.rec_loss, p_norm)
+                reg = _reg_terms(qs, unit_names, float(i), s)
+                opt.zero_grad(set_to_none=True)
+                (rec + reg).backward()
+                opt.step()
+                trace.append(rec.detach())
+        metrics["rec_trace"] = torch.stack(trace)
+    qstate = _insert_theta(qstate, {n: {k: v.detach() for k, v in t.items()}
+                                    for n, t in theta.items()})
+
+    # soft and hard loss on the first batch
+    metrics["soft_loss"] = _eval_rec(node, params, qstate, flags, xb0, yb0,
+                                     s, p_norm)
+    qstate = _harden(qstate, unit_names, s.mode)
+    metrics["hard_loss"] = _eval_rec(node, params, qstate, flags, xb0, yb0,
+                                     s, p_norm)
+    metrics["selection_ratio"] = selection_ratios(qstate, unit_names)
+    if s.mode == "fused":
+        for n in unit_names:
+            metrics["selection_ratio"].setdefault(n, "skipped:high-bit")
+    if warm_metrics is not None:
+        metrics["warmstart"] = {
+            "iters": ws_iters,
+            "presolve_hard_loss": warm_metrics.get("hard_loss"),
+            "rec_trace": warm_metrics.get("rec_trace")}
+
+    if refine_iters and all(
+            isinstance(qstate[n].wq, W.AdaRoundWQ) for n in unit_names):
+        s2 = dataclasses.replace(s, mode="round_refine", iters=refine_iters,
+                                 post_round_frac=0.0)
+        qstate, m2 = reconstruct_node(
+            graph, params, qstate, node_name, cached_inp, cached_out, s2,
+            _fold_in(seed, 991))
+        metrics["hard_loss_prerefine"] = metrics["hard_loss"]
+        metrics["hard_loss"] = m2["hard_loss"]
+        metrics["refine_trace"] = m2.get("rec_trace")
+    return qstate, metrics

@@ -1,5 +1,7 @@
 """Card-only tests of the PyTorch port: each CUDA kernel against its plain
-version on the card, and integer deploy forwards through the kernels.
+version on the card (the fake-quant kernel's backward too), integer
+deploy forwards through the kernels, and one reconstruction on the card
+against the CPU.
 
 Marked ``cuda``; they skip where no card is present. On a machine with one:
 
@@ -381,3 +383,120 @@ def test_shifted_scale_deploy_on_card(card, monkeypatch):
                     / (dep_cpu ** 2).mean())
     assert rel_cpu <= 1e-8, rel_cpu
     assert torch.equal(dep.cpu().argmax(-1), dep_cpu.argmax(-1))
+
+
+@pytest.mark.parametrize("r,c,per_row,hi", [
+    (802816, 64, False, 15), (512, 4608, True, 3), (64, 147, True, 255),
+    (10, 130, True, 15), (1001, 3, False, 15)])
+def test_fake_quant_kernel_matches_plain(card, r, c, per_row, hi):
+    """IEEE division and half-to-even rounding on both sides: bit-exact,
+    the vector path (C % 4 == 0) and the scalar one, per row and per
+    tensor, with a fifth of the elements on exact codes and bounds."""
+    from shiftedscalequantization_tpu_torch.ops.cuda import fake_quant as FQ
+    g = torch.Generator(device=card).manual_seed(7)
+    if per_row:
+        d = torch.rand((r, 1), generator=g, device=card) * 0.3 + 0.05
+        z = torch.randint(0, hi + 1, (r, 1), generator=g, device=card).float()
+    else:
+        d = torch.full((1, 1), 0.37, device=card)
+        z = torch.full((1, 1), 3.0, device=card)
+    x = torch.randn((r, c), generator=g, device=card) * 2
+    codes = torch.randint(-2, hi + 3, (r, c), generator=g, device=card)
+    pin = torch.rand((r, c), generator=g, device=card) < 0.2
+    x = torch.where(pin, (codes.float() - z) * d, x)
+    before = FQ.fake_quant_2d.launches
+    got = FQ.fake_quant_2d(x, d, z, 0, hi)
+    torch.cuda.synchronize()
+    assert FQ.fake_quant_2d.launches == before + 1
+    assert torch.equal(got, FQ.fake_quant_plain(x, d, z, 0, hi))
+    # a view 4 bytes off 16-byte alignment takes the scalar path
+    xu = x.reshape(-1)[1:1 + (r - 1) * c].reshape(r - 1, c)
+    du, zu = (d[: r - 1], z[: r - 1]) if per_row else (d, z)
+    assert torch.equal(FQ.fake_quant_2d(xu, du, zu, 0, hi),
+                       FQ.fake_quant_plain(xu, du, zu, 0, hi))
+    with pytest.raises(ValueError, match="float32"):
+        FQ.fake_quant_2d(x.double(), d, z, 0, hi)
+
+
+@pytest.mark.parametrize("kind", ["act", "weight"])
+def test_fake_quant_backward_on_card(card, kind):
+    """The Function's backward on the card against autograd through the
+    plain version: grad x equal (g * delta * m / delta in both; the
+    clip-bound ties give m = 1/2), grad delta
+    and zp within 1e-4 of their largest magnitude (sums in two orders)."""
+    from shiftedscalequantization_tpu_torch.ops.cuda import fake_quant as FQ
+    g = torch.Generator(device=card).manual_seed(8)
+    bits = 4 if kind == "act" else 2
+    hi = 2 ** bits - 1
+    shape = (16, 14, 14, 64) if kind == "act" else (128, 64, 3, 3)
+    if kind == "act":
+        d, z = torch.tensor(0.37, device=card), torch.tensor(2.0, device=card)
+        db, zb = d, z
+    else:
+        d = torch.rand((shape[0], 1), generator=g, device=card) * 0.3 + 0.05
+        z = torch.randint(0, hi + 1, (shape[0], 1), generator=g,
+                          device=card).float()
+        db, zb = d.reshape(-1, 1, 1, 1), z.reshape(-1, 1, 1, 1)
+    x = torch.randn(shape, generator=g, device=card) * 2
+    codes = torch.randint(-2, hi + 3, shape, generator=g, device=card)
+    x = torch.where(torch.rand(shape, generator=g, device=card) < 0.2,
+                    (codes.float() - zb) * db, x)
+    cot = torch.randn(shape, generator=g, device=card)
+    grads = []
+    for route in ("kernel", "plain"):
+        xt, dt, zt = (t.clone().requires_grad_(True) for t in (x, d, z))
+        if route == "plain":
+            y = FQ.fake_quant_plain(xt, dt.reshape(db.shape),
+                                    zt.reshape(zb.shape), 0, hi)
+        elif kind == "act":
+            y = FQ.fake_quant_act(xt, dt, zt, bits)
+        else:
+            y = FQ.fake_quant_weight(xt, dt, zt, bits, False)
+        (y * cot).sum().backward()
+        grads.append((y.detach(), xt.grad, dt.grad, zt.grad))
+    (y1, gx, gd, gz), (y2, rx, rd, rz) = grads
+    assert torch.equal(y1, y2) and torch.equal(gx, rx)
+    assert bool(((rx / cot - 0.5).abs() < 1e-6).any())
+    for a, b in ((gd, rd), (gz, rz)):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_reconstruct_node_step_on_card(card):
+    """One fused reconstruction (warm start, joint step, refine) of a
+    CIFAR ResNet-18 block on the card and on the CPU from the same caches
+    and the same CPU-generator rows: traces within rtol 1e-3, hardened
+    codes within a 0.5% flip rate."""
+    import shiftedscalequantization_tpu_torch as tp
+    from shiftedscalequantization_tpu_torch import quantize as TQZ
+    from shiftedscalequantization_tpu_torch.models import zoo as TZ
+    from shiftedscalequantization_tpu_torch.recon import capture as TC
+    from shiftedscalequantization_tpu_torch.recon import engine as TE
+    graph, _ = TZ.build("resnet18", num_classes=10, dataset="cifar10")
+    cfg = tp.QuantConfig(n_bits_w=2, n_bits_a=4)
+    params, qs = tp.prepare_model(graph, TZ.init_params(graph, device=card),
+                                  cfg, device=card)
+    x = torch.randn((32, 32, 32, 3),
+                    generator=torch.Generator(device=card).manual_seed(9),
+                    device=card)
+    name = "model.layer2.0"
+    ci, co = TC.capture_io(graph, params, qs, name, x, tp.Flags(),
+                           tp.Flags(), batch_size=32, device=card)
+    s = TE.ReconSettings(mode="fused", iters=12, batch_size=16,
+                         shift_targets=(0.5, 1.0), warmstart_frac=0.25)
+    q_card, m_card = TE.reconstruct_node(graph, params, qs, name, ci, co, s,
+                                         seed=3)
+    q_cpu, m_cpu = TE.reconstruct_node(
+        graph, TQZ.to_device(params, "cpu"), TQZ.to_device(qs, "cpu"), name,
+        ci.cpu(), co.cpu(), s, seed=3)
+    for a, b in ((m_card["rec_trace"], m_cpu["rec_trace"]),
+                 (m_card["refine_trace"], m_cpu["refine_trace"]),
+                 (m_card["warmstart"]["rec_trace"],
+                  m_cpu["warmstart"]["rec_trace"])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=0)
+    for u in ("model.layer2.0.conv1", "model.layer2.0.conv2",
+              "model.layer2.0.downsample.0"):
+        wc, wh = q_card[u].wq, q_cpu[u].wq
+        assert float((wc.st_index.cpu() != wh.st_index).float().mean()) \
+            <= 0.005
+        assert float(((wc.alpha.cpu() >= 0) != (wh.alpha >= 0)).float()
+                     .mean()) <= 0.005

@@ -29,7 +29,10 @@ def _imports(path):
 
 def test_port_and_smoke_script_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 14
+    assert len(files) >= 18
+    for new in ("ops/cuda/fake_quant.py", "recon/capture.py",
+                "recon/engine.py", "recon/pipeline.py"):
+        assert PORT / new in files, new
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -41,9 +44,13 @@ def test_kernel_sources_and_build_command():
     linked into one library loaded with ctypes; the package carries no
     torch extension build."""
     srcs = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert srcs == ["dw_conv3x3.cu", "int_matmul.cu", "mbconv_fused.cu",
-                    "packed_qmm.cu", "stem_fused.cu"]
+    assert srcs == ["dw_conv3x3.cu", "fake_quant.cu", "int_matmul.cu",
+                    "mbconv_fused.cu", "packed_qmm.cu", "stem_fused.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    # the fake-quant kernel divides and rounds half to even as the plain
+    # version does; fast math would turn the division into a reciprocal
+    assert not any("fast_math" in f or "ftz" in f or "prec-div" in f
+                   for f in _build.NVCC_FLAGS)
     assert _build.BUILD_DIR == ROOT / "build" / "torch_kernels"
     for path in PORT.rglob("*.py"):
         text = path.read_text()

@@ -11,17 +11,24 @@ non-zero exit and no result line:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: one nvcc process per CUDA source, all started together, and a
-   link into one library;
-3. kernels: the packed, stem and quant_matmul kernels against their plain
+   link into one library (int_matmul.cu includes CuTe); its seconds and
+   ptxas's registers and shared memory per kernel;
+3. kernels: the stem and quant_matmul kernels against their plain
    PyTorch versions on the card, at the ResNet-18 serving shapes (batch
    256, 224x224; quant_matmul also at a ragged shape), with CUDA event
    timings beside the card's bound;
 4. serving: ResNet-18 ImageNet W2A4 at full width with seeded weights,
    MSE scale init, calibration on 16 images, deploy conversion, and one
    integer deploy forward at batch 256 with the fused stem and packed-W2
-   kernels on; the launch counters, reset just before that forward, must
-   show the stem kernel once, the packed kernel 3 times and the int8_conv
-   kernel 16 times;
+   kernels on; the counters, reset just before that forward, must show
+   the stem kernel once, the packed kernel 3 times, the int8_conv kernel
+   16 times and UNFUSED requants left to PyTorch elementwise ops;
+   then the packed kernel at the path's three downsample shapes (codes
+   in, stride 2 read in place): torch.equal against its plain version in
+   sums mode (f32 out) and in every requant epilogue of REQUANT_VARIANTS,
+   each also against the same launch in sums mode followed by deploy's
+   quantize_out; f32 rows in, sums mode; timed per mode beside the bound
+   and torch._int_mm;
 5. parity: the fake-quant sim forward on the same batch (TF32 off) against
    the deploy logits: no NaN, rel-MSE <= 1e-2;
 6. mnv2 setup: MobileNetV2 ImageNet (width 1.0) W2A4, set up as in 4, and
@@ -29,14 +36,16 @@ non-zero exit and no result line:
    package's kinds: 16 dw_int8, 34 packed, 1 bf16_codes, 1 float_1p,
    1 float;
 7. dw kernel: the depthwise kernel against its plain version, bit-exact,
-   at each distinct shape of the plan's 16 dw units, and timed; the packed
-   kernel likewise at each distinct shape of the plan's 34 packed units;
+   at each distinct shape of the plan's 16 dw units, and timed beside
+   cuDNN's bf16 depthwise conv; the packed kernel as in 4 at each distinct
+   shape of the plan's 34 packed units;
 8. mbconv kernel: the fused inverted-residual kernel against its plain
    version, bit-exact, at three MobileNetV2 block shapes (it has no
    caller on the serving path), and timed;
 9. mnv2 serving: one deploy forward at batch 256 with the counters reset
-   just before it (16 dw and 34 packed launches, no int8_conv), its time,
-   and the time of the port's bf16 float forward of the same model;
+   just before it (16 dw and 34 packed launches, no int8_conv, UNFUSED
+   requants left), its time, and the time of the port's bf16 float
+   forward of the same model;
 10. mnv2 parity: sim (TF32 off) against deploy, no NaN, rel-MSE <= 1e-2;
    and on 8 images snapped to a 1/8 grid the card's deploy logits against
    the port's CPU deploy of the same state (the plain versions), rel-MSE
@@ -46,14 +55,16 @@ non-zero exit and no result line:
    stem and fc take plain AdaRound) and hardened to the baked form, then
    converted; the plan under SSQ_STEM_KERNEL=1 SSQ_PACKED=1 must be 1
    stem_fused, 19 int8/bf16_codes and 1 float;
-12. int8_conv kernel: the implicit-GEMM kernel against its plain version,
-   bit-exact, at every distinct conv shape of that plan, with one weight
-   group (int32 sums) and two (the scale-table sum), timed beside its
-   bound, the im2col + torch._int_mm route it replaced and cuDNN's bf16
-   conv alone (yardsticks only);
+12. int8_conv kernel: the wgmma implicit-GEMM kernel against its plain
+   version at every distinct conv shape of that plan and of the uniform
+   plan, with one weight group (int32 sums) and two (the scale-table
+   sum), offsets 0 and 128: torch.equal in sums mode and in every requant
+   epilogue, each also against the sums launch followed by quantize_out;
+   timed per mode beside the bound (all groups' operations), S cuDNN bf16
+   convs on the same codes and the im2col + torch._int_mm route;
 13. method serving: one deploy forward at batch 256 with the counters
-   reset just before it (19 int8_conv, 1 stem, 0 packed launches), its
-   time, and the shift-candidate selection ratios;
+   reset just before it (19 int8_conv, 1 stem, 0 packed launches, UNFUSED
+   requants left), its time, and the shift-candidate selection ratios;
 14. method parity: sim against deploy, no NaN, rel-MSE <= 1e-2, with the
    top-1 agreement and how close the sim's top two logits sit beside the
    deploy-vs-sim difference; card against CPU deploy on 8 grid images,
@@ -86,7 +97,8 @@ non-zero exit and no result line:
    sim forward with every act site on (counters reset just before it:
    fake_quant once per act site, 17, and once for the stem's 8-bit
    UniformWQ weight), deploy conversion and one deploy forward (19
-   int8_conv, 1 stem); deploy vs sim rel-MSE <= 1e-2, no NaN, its top-1
+   int8_conv, 1 stem, UNFUSED requants left); deploy vs sim rel-MSE
+   <= 1e-2, no NaN, its top-1
    agreement and margins as in 14; card vs CPU deploy on 8 grid images
    rel-MSE <= 1e-8, same top-1.
 
@@ -109,6 +121,12 @@ RELMSE_GATE = 1e-2
 CARD_CPU_GATE = 1e-8             # card deploy vs CPU deploy, grid images
 MNV2_KINDS = {"dw_int8": 16, "packed": 34, "bf16_codes": 1, "float_1p": 1,
               "float": 1}
+# requants each path's deploy forward leaves to PyTorch elementwise ops
+# (deploy.quantize_out.unfused): ResNet-18's go in the int8_conv and
+# packed epilogues; MobileNetV2's float_1p stem and the bf16_codes
+# depthwise unit fed by it have no requant epilogue
+UNFUSED = {"resnet18": 0, "resnet18_shifted": 0, "resnet18_reconstructed": 0,
+           "mobilenetv2": 2}
 SHIFT_TARGETS = (0.5, 1.0)       # the method path's candidate set
 RECON_IMAGES = 256               # calibration set of the reconstruction
 RECON_ITERS = 200                # optimizer steps per target (CLI: 20000)
@@ -121,11 +139,13 @@ PARITY_FLIPS = 0.005             # hardened codes, card vs CPU
 GRAD_RTOL = 1e-4                 # delta / zp gradients: sums in two orders
 BATCH = 256
 HW = 224
+DEVICE = "cuda"                  # the card; the checks allocate here
 _T0 = time.perf_counter()
 
 
 def phase(name, t0):
-    print(f"[{name}] {time.perf_counter() - t0:.2f} s", flush=True)
+    now = time.perf_counter()
+    print(f"[{name}] {now - t0:.2f} s (at {now - _T0:.2f} s)", flush=True)
 
 
 def time_cuda(fn, iters=20, warmup=3):
@@ -144,61 +164,279 @@ def time_cuda(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def time_graph(fn, iters=20, warmup=3):
+    """Mean ms per call of ``fn`` captured once in a CUDA graph and
+    replayed ``iters`` times between CUDA events, after warm-up: the
+    card's time for the call (its small setup kernels included) without
+    the host's Python between launches, which a small kernel's eager
+    timing measures instead."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound_ms(n_bytes, n_ops, peak_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_packed(torch, gen, packed, shapes=None, iters=20):
-    """Packed kernel vs its plain version at (name, M, K, N) shapes, W2
-    codes; by default the three stride-2 downsample 1x1 convs of ResNet-18
-    at batch 256."""
+# The requant epilogues the deploy path builds, each held two ways at a
+# kernel's full shape: the kernel launched with the epilogue (through
+# deploy's own quantize_out / _block_requant on a deferred launch) against
+# the same kernel's sums-mode launch followed by quantize_out's elementwise
+# arithmetic, and against the plain version's sums through requant_plain.
+# Sites (delta, zp, bits): 4-bit post-relu, 4-bit asymmetric, 8-bit
+# unsigned (biased transport), and two block sites.
+REQUANT_SITES = {"u4": (0.37, 0.0, 4), "a4": (0.29, 7.0, 4),
+                 "b8": (0.021, 0.0, 8), "blk": (0.41, 0.0, 4),
+                 "blka": (0.33, 8.0, 4)}
+# (label, unit site or None, unit act, block site or None, block act,
+#  residual kind): a unit requant onto its own site (no block), or the
+# block's requant after the last unit (its site or none) with a residual
+REQUANT_VARIANTS = [
+    ("site u4 relu", "u4", "relu", None, None, None),
+    ("site u4 relu6", "u4", "relu6", None, None, None),
+    ("site a4 none", "a4", None, None, None, None),
+    ("biased b8 relu", "b8", "relu", None, None, None),
+    ("block relu, codes residual", None, None, "blk", "relu", "codes"),
+    ("block relu, f32 residual", None, None, "blk", "relu", "f32"),
+    ("block none, biased residual", None, None, "blka", None, "biased"),
+    ("block none, no residual", None, None, "blka", None, None),
+    ("unit site a4 + block relu6, codes residual", "a4", None, "blk",
+     "relu6", "codes"),
+]
+# the variant each role of a unit on the serving paths runs
+ROLE_VARIANT = {"site": "site u4 relu", "block codes":
+                "block relu, codes residual",
+                "block f32": "block relu, f32 residual",
+                "block none": "block none, no residual"}
+
+
+def requant_context(torch, deploy, dev):
+    steps = {k: (torch.tensor(d, device=dev), torch.tensor(z, device=dev), b)
+             for k, (d, z, b) in REQUANT_SITES.items()}
+    return deploy._Ctx(steps, frozenset({"u4", "a4", "blk", "blka"}),
+                       frozenset({"b8"}))
+
+
+def requant_variant(torch, deploy, ctx, variant, deferred, pending, res):
+    """(fused, unfused) outputs ('codes'/'biased', int8, site) of one
+    variant: ``deferred`` launches the kernel with the epilogue,
+    ``pending`` is its sums-mode value."""
+    from types import SimpleNamespace as NS
+    _, usite, uact, bsite, bact, rkind = variant
+    if bsite is None:
+        return (deploy.quantize_out(ctx, deferred, usite, uact),
+                deploy.quantize_out(ctx, pending, usite, uact))
+    unit = NS(name=usite or "no site", activation=uact)
+    node = NS(name=bsite, post_activation=bact)
+    r = res[rkind] if rkind else None
+    fused = deploy._block_requant(ctx, deferred, unit, node, r)
+    t = deploy.quantize_out(ctx, pending, unit.name, uact)
+    return fused, deploy.quantize_out(ctx, t, bsite, bact, residual=r)
+
+
+def residuals(torch, gen, shape, dev):
+    """A residual of each kind shaped like a unit's output."""
+    return {"codes": ("codes", torch.randint(-7, 9, shape, generator=gen,
+                                             device=dev, dtype=torch.int8),
+                      "a4"),
+            "biased": ("biased", torch.randint(-128, 128, shape,
+                                               generator=gen, device=dev,
+                                               dtype=torch.int8), "b8"),
+            "f32": ("f32", torch.randn(shape, generator=gen, device=dev)
+                    * 1.5, None)}
+
+
+def check_requant_modes(torch, deploy, requant, label, launch, plain_value,
+                        pending, res, ctx):
+    """Every variant: kernel codes == sums launch + quantize_out == plain
+    sums + requant_plain, with torch.equal. Returns {variant: the Requant
+    deploy built for it}."""
+    rqs = {}
+    for variant in REQUANT_VARIANTS:
+        seen = []
+
+        def run(rq):
+            seen.append(rq)
+            return launch(rq)
+
+        fused, unfused = requant_variant(
+            torch, deploy, ctx, variant,
+            deploy._Deferred(run, pending.scale, pending.bias,
+                             pending=True) if isinstance(
+                                 pending, deploy._Pending)
+            else deploy._Deferred(run, pending=False), pending, res)
+        plain = requant.requant_plain(plain_value, seen[0])
+        torch.cuda.synchronize()
+        if fused[0] != unfused[0] or fused[2] != unfused[2] \
+                or fused[1].dtype != torch.int8 \
+                or not torch.equal(fused[1], unfused[1]) \
+                or not torch.equal(fused[1], plain) \
+                or torch.unique(plain).numel() < 3:
+            d = (fused[1].int() - plain.int()).abs()
+            raise AssertionError(
+                f"{label} {variant[0]}: kernel codes differ from the sums + "
+                f"quantize_out route or the plain version ({int(d.max())} "
+                f"max, {int((d != 0).sum())} codes), or the codes take "
+                f"{torch.unique(plain).numel()} values (a check needs 3)")
+        rqs[variant[0]] = seen[0]
+    return rqs
+
+
+def gemm_roles(graph, plan, kinds):
+    """{unit name: role} of the units a plan runs as ``kinds``: 'sums' (a
+    downsample, materialized in f32), 'block codes' / 'block f32' / 'block
+    none' (a block's last unit, which takes the block's requant with an
+    identity residual, a downsample's, or none) or 'site' (a requant onto
+    the unit's own site)."""
+    from shiftedscalequantization_tpu_torch.graph import BlockSpec, UnitSpec
+    roles = {}
+    for node in graph:
+        if isinstance(node, UnitSpec):
+            if plan[node.name][0] in kinds:
+                roles[node.name] = "site"
+        elif isinstance(node, BlockSpec):
+            if node.downsample is not None \
+                    and plan[node.downsample.name][0] in kinds:
+                roles[node.downsample.name] = "sums"
+            for u in node.units:
+                if plan[u.name][0] not in kinds:
+                    continue
+                if u is node.units[-1]:
+                    roles[u.name] = "block " + (
+                        "none" if not node.residual else
+                        "f32" if node.downsample is not None else "codes")
+                else:
+                    roles[u.name] = "site"
+    return roles
+
+
+def role_counts(graph, plan, kinds, key_of):
+    """{shape key: {role: count}} of the units a plan runs as ``kinds``."""
+    from shiftedscalequantization_tpu_torch.graph import iter_units
+    from shiftedscalequantization_tpu_torch import deploy
+    hw = deploy._unit_in_hw(graph, (HW, HW))
+    roles = gemm_roles(graph, plan, kinds)
+    out = {}
+    for u in iter_units(graph):
+        if u.name in roles:
+            key = key_of(u, hw[u.name])
+            out.setdefault(key, {})
+            out[key][roles[u.name]] = out[key].get(roles[u.name], 0) + 1
+    return out
+
+
+def _scaled(torch, gen, n, dev, spread):
+    """Per-column scales that put a value of std ``spread`` near 3 steps of
+    the 0.37 grid, and biases of a step or two."""
+    sc = (torch.rand((n,), generator=gen, device=dev) * 0.5 + 0.75) \
+        * (3 * 0.37 / max(spread, 1e-6))
+    return sc, torch.randn((n,), generator=gen, device=dev) * 0.6
+
+
+def path_time(rows, key="ms", roles="roles"):
+    """Sum over shapes of count x the time (or bound) of each role's
+    mode: one forward's worth."""
+    return sum(c * r[key][role] for r in rows for role, c in
+               r[roles].items())
+
+
+def check_packed(torch, gen, packed, requant, deploy, shapes, iters=20):
+    """Packed kernel vs its plain version at each (B, H, W, K, stride, N)
+    NHWC 1x1 shape of a path at batch 256, W2 codes, int8 codes in:
+    torch.equal in sums mode (f32 out, as the downsample uses it) and in
+    every requant variant, each also against the same launch in sums mode
+    followed by quantize_out; f32 rows in (quantized on the way in), sums
+    mode, once per shape. Timed in each role's mode and in sums mode,
+    beside the bound (the bytes the mode reads and writes once, or the
+    int8 operations) and torch._int_mm on the same codes."""
+    dev = DEVICE
+    ctx = requant_context(torch, deploy, dev)
     rows = []
-    shapes = shapes or [("layer2.0.downsample", 200704, 64, 128),
-                        ("layer3.0.downsample", 50176, 128, 256),
-                        ("layer4.0.downsample", 12544, 256, 512)]
-    dev = "cuda"
-    for name, m, k, n in shapes:
-        x = torch.randn((m, k), generator=gen, device=dev)
+    for (b, h, w, k, st, n), roles in sorted(shapes.items(), reverse=True):
+        ho, wo = (h - 1) // st + 1, (w - 1) // st + 1
+        m = b * ho * wo
+        x = torch.randint(-7, 9, (b, h, w, k), generator=gen, device=dev,
+                          dtype=torch.int8)
         raw = torch.randint(0, 4, (k, n), generator=gen, device=dev,
                             dtype=torch.int32)
         w_zp = torch.randint(0, 4, (n,), generator=gen, device=dev).float()
-        scale = torch.rand((n,), generator=gen, device=dev) * 0.09 + 0.01
-        bias = torch.randn((n,), generator=gen, device=dev)
         wp = packed.pack_codes(raw, 2)
         delta = torch.tensor(0.05, device=dev)
         zp = torch.tensor(7.0, device=dev)
+        spread = 0.05 * 4.0 * math.sqrt(k)
+        scale, bias = _scaled(torch, gen, n, dev, spread)
         args = (x, wp, w_zp, scale, bias, delta, zp, 2, 4)
-        got = packed.packed_quant_matmul(*args)
-        want = packed.packed_quant_matmul_plain(*args)
+        label = f"packed {b}x{h}x{w}x{k}/s{st}->{n}"
+        got = packed.packed_quant_matmul(*args, stride=st)
+        want = packed.packed_quant_matmul_plain(*args, stride=st)
+        xf = torch.randn((b, h, w, k), generator=gen, device=dev)
+        got_f = packed.packed_quant_matmul(xf, *args[1:], stride=st)
+        want_f = packed.packed_quant_matmul_plain(xf, *args[1:], stride=st)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not torch.allclose(got, want, rtol=1e-5, atol=1e-4):
-            raise AssertionError(f"packed {name}: max abs err {err}")
-        ms = time_cuda(lambda: packed.packed_quant_matmul(*args), iters)
-        plain_ms = time_cuda(lambda: packed.packed_quant_matmul_plain(*args),
-                             iters)
-        xq = (torch.clamp(torch.round(x / delta) + zp, 0, 15) - zp) \
-            .to(torch.int8)
+        if not (torch.equal(got, want) and torch.equal(got_f, want_f)):
+            raise AssertionError(f"{label}: sums differ from the plain "
+                                 "version")
+        res = residuals(torch, gen, got.shape, dev)
+        rqs = check_requant_modes(
+            torch, deploy, requant, label,
+            lambda rq: packed.packed_quant_matmul(*args, stride=st,
+                                                  requant=rq),
+            want, got, res, ctx)
+        ms = {"sums": time_graph(lambda: packed.packed_quant_matmul(
+            *args, stride=st), iters)}
+        bytes_ = {"sums": m * k + wp.numel() * 4 + 3 * n * 4 + 4 * m * n}
+        for role in roles:
+            if role == "sums":
+                continue
+            rq = rqs[ROLE_VARIANT[role]]
+            ms[role] = time_graph(lambda: packed.packed_quant_matmul(
+                *args, stride=st, requant=rq), iters)
+            rbytes = {"block codes": m * n, "block f32": 4 * m * n}.get(
+                role, 0)
+            bytes_[role] = m * k + wp.numel() * 4 + 5 * n * 4 + m * n \
+                + rbytes
+        plain_ms = time_cuda(lambda: packed.packed_quant_matmul_plain(
+            *args, stride=st), max(2, iters // 4), warmup=1)
+        xq = x[:, ::st, ::st, :].reshape(m, k)
         w8 = (raw - w_zp.round().to(torch.int32)).to(torch.int8) \
             .T.contiguous().T
-        lib_ms = time_cuda(lambda: torch._int_mm(xq, w8), iters)
-        n_bytes = m * k * 4 + wp.numel() * 4 + 3 * n * 4 + m * n * 4
-        b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k, INT8_OPS)
-        print(f"  packed {name} M={m} K={k} N={n}: {ms:.4f} ms "
-              f"(bound {b_ms:.4f} ms by {b_by}, plain {plain_ms:.4f}, "
-              f"_int_mm {lib_ms:.4f}), max abs err {err:.3g}", flush=True)
-        rows.append(dict(name=name, shape=(m, k, n), ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by, err=err))
+        lib_ms = time_graph(lambda: torch._int_mm(xq, w8), iters)
+        bound = {role: bound_ms(nb, 2 * m * n * k, INT8_OPS)
+                 for role, nb in bytes_.items()}
+        print(f"  {label} {roles}: " + ", ".join(
+            f"{role} {t:.4f} ms (bound {bound[role][0]:.4f} by "
+            f"{bound[role][1]})" for role, t in ms.items())
+            + f"; plain {plain_ms:.4f}, _int_mm {lib_ms:.4f}; sums and "
+            f"{len(rqs)} requant variants bit-exact", flush=True)
+        rows.append(dict(shape=(b, h, w, k, st, n), roles=roles, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms={r: v[0] for r, v in bound.items()},
+                         bound_by={r: v[1] for r, v in bound.items()},
+                         err=0.0))
     return rows
 
 
 def check_stem(torch, gen, stem):
     """The ResNet-18 stem at batch 256, 224x224: biased 8-bit (the serving
     site) and centered 4-bit transport."""
-    dev = "cuda"
+    dev = DEVICE
     x = torch.randn((BATCH, HW, HW, 3), generator=gen, device=dev)
     w = torch.randint(-120, 121, (64, 3, 7, 7), generator=gen,
                       device=dev).float()
@@ -246,7 +484,7 @@ def check_quant_matmul(torch, gen, int_matmul):
     rounding and step-by-step epilogue), 4-bit acts, W2 codes, ReLU on;
     beside it torch._int_mm on the pre-quantized int8 operands (the GEMM
     alone, without the quantization or the epilogue)."""
-    dev = "cuda"
+    dev = DEVICE
     rows = []
     for name, m, k, n in QMM_SHAPES:
         x = torch.randn((m, k), generator=gen, device=dev)
@@ -263,14 +501,14 @@ def check_quant_matmul(torch, gen, int_matmul):
         err = float((got - want).abs().max())
         if err != 0:
             raise AssertionError(f"quant_matmul {name}: max abs err {err}")
-        ms = time_cuda(lambda: int_matmul.quant_matmul(*args))
+        ms = time_graph(lambda: int_matmul.quant_matmul(*args))
         plain_ms = time_cuda(lambda: int_matmul.quant_matmul_plain(*args),
                              iters=5)
         xq = (torch.clamp(torch.round(x / delta) + zp, 0, 15) - zp) \
             .to(torch.int8)
         # cuBLASLt's int8 GEMM behind torch._int_mm refuses M not a
         # multiple of 8: no library time for the ragged shape
-        lib_ms = time_cuda(lambda: torch._int_mm(xq, w)) \
+        lib_ms = time_graph(lambda: torch._int_mm(xq, w)) \
             if m % 8 == 0 else None
         n_bytes = m * k * 4 + k * n + 2 * n * 4 + m * n * 4
         b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k, INT8_OPS)
@@ -314,29 +552,29 @@ def serving_setup(torch, gen, arch="resnet18", shifted=False):
     return graph, cfg, params, qstate, dparams, steps
 
 
-def mnv2_path_shapes(graph, dparams, plan):
-    """The shapes the MobileNetV2 serving plan gives its kernels at batch
-    256: {(H, W, C, stride): count} of the dw_int8 units and
-    {(M, K, N): count} of the packed units."""
+def packed_shapes(graph, dparams, plan):
+    """{(B, H, W, K, stride, N): {role: count}} of the units a plan runs
+    packed, at batch 256 (a linear unit is B x 1 x 1 rows)."""
+    for name, d in dparams.items():
+        if plan[name][0] == "packed" and d.w_pack_bits != 2:
+            raise AssertionError(f"{name}: not W2 packed")
+    return role_counts(
+        graph, plan, ("packed",),
+        lambda u, hw: (BATCH, *((1, 1) if u.kind == "linear" else hw),
+                       u.in_ch, u.stride[0], u.out_ch))
+
+
+def dw_shapes(graph, plan):
+    """{(H, W, C, stride): count} of the dw_int8 units of a plan."""
     from shiftedscalequantization_tpu_torch import deploy
     from shiftedscalequantization_tpu_torch.graph import iter_units
     hw = deploy._unit_in_hw(graph, (HW, HW))
-    dw, pk = {}, {}
+    dw = {}
     for u in iter_units(graph):
-        kind = plan[u.name][0]
-        h, w = hw[u.name]
-        if kind == "dw_int8":
-            key = (h, w, u.in_ch, u.stride[0])
+        if plan[u.name][0] == "dw_int8":
+            key = (*hw[u.name], u.in_ch, u.stride[0])
             dw[key] = dw.get(key, 0) + 1
-        elif kind == "packed":
-            if dparams[u.name].w_pack_bits != 2:
-                raise AssertionError(f"{u.name}: not W2 packed")
-            m = BATCH if u.kind == "linear" else \
-                BATCH * ((h - 1) // u.stride[0] + 1) \
-                * ((w - 1) // u.stride[1] + 1)
-            key = (m, u.in_ch, u.out_ch)
-            pk[key] = pk.get(key, 0) + 1
-    return dw, pk
+    return dw
 
 
 def check_dw(torch, gen, dw, shapes):
@@ -345,7 +583,7 @@ def check_dw(torch, gen, dw, shapes):
     beside it cuDNN's bf16 channels-last depthwise conv of the same shape
     (the conv alone, without the epilogue and requant)."""
     import torch.nn.functional as F
-    dev = "cuda"
+    dev = DEVICE
     rows = []
     for (h, w, c, stride), count in sorted(shapes.items(), reverse=True):
         x = torch.randint(-8, 8, (BATCH, h, w, c), generator=gen,
@@ -394,7 +632,7 @@ def check_mbconv(torch, gen, mbconv):
     """mbconv kernel vs its plain version, bit-exact, at three MobileNetV2
     block shapes at batch 256: 4-bit block codes, W2 codes, 4-bit stage
     clips."""
-    dev = "cuda"
+    dev = DEVICE
     rows = []
 
     def codes(*shape):
@@ -436,82 +674,131 @@ def check_mbconv(torch, gen, mbconv):
 
 
 def int8_conv_shapes(graph, plan):
-    """{(H, W, C, N, kernel, stride, padding): count} of the dense units
-    a plan sends through int8_conv."""
-    from shiftedscalequantization_tpu_torch import deploy
-    from shiftedscalequantization_tpu_torch.graph import iter_units
-    hw = deploy._unit_in_hw(graph, (HW, HW))
-    shapes = {}
-    for u in iter_units(graph):
-        if plan[u.name][0] in ("int8", "bf16_codes") and u.groups == 1:
-            key = (*hw[u.name], u.in_ch, u.out_ch, u.kernel[0],
-                   u.stride[0], u.padding[0])
-            shapes[key] = shapes.get(key, 0) + 1
-    return shapes
+    """{(H, W, C, N, kernel, stride, padding): {role: count}} of the dense
+    units a plan sends through int8_conv."""
+    return role_counts(
+        graph, plan, ("int8", "bf16_codes"),
+        lambda u, hw: (*hw, u.in_ch, u.out_ch, u.kernel[0], u.stride[0],
+                       u.padding[0]))
 
 
-def check_int8_conv(torch, gen, int_matmul, shapes):
-    """int8_conv vs its plain version, bit-exact, at each conv shape of
-    the method path at batch 256: 4-bit codes, W2 codes, one weight group
-    (int32 sums) and two groups masked per input channel with a scale
-    table (f32). Timed beside its bound, the im2col + torch._int_mm route
-    it replaced and cuDNN's bf16 channels-last conv alone (yardsticks)."""
+def check_int8_conv(torch, gen, int_matmul, requant, deploy, shapes,
+                    uniform_shapes):
+    """int8_conv vs its plain version at each conv shape of the method
+    path (``shapes``) and the uniform path at batch 256, 4-bit codes
+    (8-bit biased ones with offset 128), W2 codes: one weight group (int32
+    sums) and two masked per input channel with a scale table (f32), each
+    with offset 0 and 128, torch.equal in sums mode and in every requant
+    variant, each also against the same launch in sums mode followed by
+    quantize_out. Timed in each role's mode and in sums mode at S = 2 (the
+    method path) and S = 1 (uniform), beside the bound (the bytes the mode
+    reads and writes once, or all S groups' int8 operations), S cuDNN bf16
+    channels-last convs on the same codes (the library yardstick) and the
+    im2col + torch._int_mm route (a yardstick)."""
     import torch.nn.functional as F
-    dev = "cuda"
+    dev = DEVICE
+    ctx = requant_context(torch, deploy, dev)
     rows = []
-    for key, count in sorted(shapes.items(), reverse=True):
+    for key in sorted(set(shapes) | set(uniform_shapes), reverse=True):
         h, w, c, n, k, st, p = key
         geom = ((k, k), (st, st), (p, p))
         kk = k * k * c
-        x = torch.randint(-8, 8, (BATCH, h, w, c), generator=gen,
-                          device=dev, dtype=torch.int8)
-        w1 = torch.randint(-2, 2, (1, n, kk), generator=gen, device=dev,
+        ho, wo = (h + 2 * p - k) // st + 1, (w + 2 * p - k) // st + 1
+        m = BATCH * ho * wo
+        x4 = torch.randint(-8, 8, (BATCH, h, w, c), generator=gen,
+                           device=dev, dtype=torch.int8)
+        x8 = torch.randint(-128, 128, (BATCH, h, w, c), generator=gen,
+                           device=dev, dtype=torch.int8)
+        # symmetric weights: the biased feed's centered codes are >= 0
+        w1 = torch.randint(-2, 3, (1, n, kk), generator=gen, device=dev,
                            dtype=torch.int8)
         sel = torch.randint(0, 2, (c,), generator=gen, device=dev) \
             .repeat(k * k)                    # group of each K position
         w2 = torch.stack([torch.where(sel == s, w1[0], 0) for s in (0, 1)]) \
             .to(torch.int8).contiguous()
-        table = torch.rand((2, n), generator=gen, device=dev) * 0.02 + 1e-3
         delta = torch.tensor(0.37, device=dev)
-        one = lambda: int_matmul.int8_conv(x, w1, *geom)  # noqa: E731
-        two = lambda: int_matmul.int8_conv(  # noqa: E731
-            x, w2, *geom, group_scales=table, act_delta=delta)
-        err = 0.0
-        for fn, want in ((one, int_matmul.int8_conv_plain(x, w1, *geom)),
-                         (two, int_matmul.int8_conv_plain(
-                             x, w2, *geom, group_scales=table,
-                             act_delta=delta))):
-            got = fn()
-            torch.cuda.synchronize()
-            if got.dtype != want.dtype or not torch.equal(got, want):
-                err = float((got.double() - want.double()).abs().max())
-                raise AssertionError(f"int8_conv {key}: max abs err {err}")
-        ms1 = time_cuda(one)
-        ms2 = time_cuda(two)
+        label = f"int8_conv {h}x{w}x{c}->{n} k{k}/s{st}"
+        ms, bytes_, rqs_by = {}, {}, {}
+        res = None
+        for s_n, wm in ((1, w1), (2, w2)):
+            for offset in (0, 128):
+                x = x8 if offset else x4
+                spread = (209.0 if offset else 6.6) * math.sqrt(kk)
+                scale, bias = _scaled(torch, gen, n, dev, spread)
+                table = None if s_n == 1 else torch.stack(
+                    [scale * 0.5, scale]) / delta
+                off = offset * wm.sum(dim=2, dtype=torch.int32) \
+                    if offset else None
+                kw = dict(pad_value=-offset, group_scales=table,
+                          act_delta=delta, acc_offset=off)
+                got = int_matmul.int8_conv(x, wm, *geom, **kw)
+                want = int_matmul.int8_conv_plain(x, wm, *geom, **kw)
+                torch.cuda.synchronize()
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    raise AssertionError(f"{label} S={s_n} offset {offset}: "
+                                         "sums differ from the plain version")
+                if res is None:
+                    res = residuals(torch, gen, got.shape, dev)
+                pend = deploy._Pending(got.float(), scale, bias) \
+                    if s_n == 1 else deploy._Pending(got, None, bias)
+                rqs = check_requant_modes(
+                    torch, deploy, requant, f"{label} S={s_n} offset "
+                    f"{offset}",
+                    lambda rq: int_matmul.int8_conv(x, wm, *geom,
+                                                    requant=rq, **kw),
+                    want.float(), pend, res, ctx)
+                if offset:
+                    continue
+                rqs_by[s_n] = rqs
+                tag = "S=2" if s_n == 2 else "S=1"
+                base = BATCH * h * w * c + s_n * n * kk
+                ms[(tag, "sums")] = time_graph(
+                    lambda: int_matmul.int8_conv(x, wm, *geom, **kw))
+                bytes_[(tag, "sums")] = base + 4 * m * n + 4 * s_n * n
+                roles = (shapes if s_n == 2 else uniform_shapes).get(key, {})
+                for role in roles:
+                    if role == "sums":
+                        continue
+                    rq = rqs[ROLE_VARIANT[role]]
+                    ms[(tag, role)] = time_graph(
+                        lambda: int_matmul.int8_conv(x, wm, *geom,
+                                                     requant=rq, **kw))
+                    bytes_[(tag, role)] = base + m * n + 4 * s_n * n \
+                        + {"block codes": m * n,
+                           "block f32": 4 * m * n}.get(role, 0)
         plain_ms = time_cuda(lambda: int_matmul.int8_conv_plain(
-            x, w2, *geom, group_scales=table, act_delta=delta), iters=3,
+            x4, w2, *geom, group_scales=table, act_delta=delta), iters=3,
             warmup=1)
+        xb = x4.permute(0, 3, 1, 2).to(torch.bfloat16)     # channels_last
+        wbs = [w2[s].reshape(n, k, k, c).permute(0, 3, 1, 2)
+               .to(torch.bfloat16) for s in range(2)]
+        lib = {"S=1": time_graph(lambda: F.conv2d(xb, wbs[0], None, st, p)),
+               "S=2": time_graph(lambda: [F.conv2d(xb, wb, None, st, p)
+                                          for wb in wbs])}
         mm_ms = time_cuda(lambda: torch._int_mm(
-            int_matmul.im2col(x, *geom, 0)[0], w1[0].t()))
-        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)      # channels_last
-        wb = w1[0].reshape(n, k, k, c).permute(0, 3, 1, 2) \
-            .to(torch.bfloat16)
-        conv_ms = time_cuda(lambda: F.conv2d(xb, wb, None, st, p))
-        ho, wo = (h + 2 * p - k) // st + 1, (w + 2 * p - k) // st + 1
-        m = BATCH * ho * wo
-        b_ms, b_by = bound_ms(BATCH * h * w * c + 2 * n * kk + 8 * n + 4
-                              + 4 * m * n, 2 * m * n * kk, INT8_OPS)
-        b1_ms, _ = bound_ms(BATCH * h * w * c + n * kk + 4 * m * n,
-                            2 * m * n * kk, INT8_OPS)
-        print(f"  int8_conv {h}x{w}x{c}->{n} k{k}/s{st} (x{count}): S=2 "
-              f"{ms2:.4f} ms, S=1 {ms1:.4f} ms (bound {b_ms:.4f} / "
-              f"{b1_ms:.4f} ms by {b_by}, plain {plain_ms:.4f}, im2col + "
-              f"_int_mm {mm_ms:.4f}, cuDNN bf16 conv alone {conv_ms:.4f}), "
-              f"bit-exact", flush=True)
-        rows.append(dict(shape=key, count=count, ms=ms2, ms_s1=ms1,
-                         plain_ms=plain_ms, im2col_int_mm_ms=mm_ms,
-                         cudnn_bf16_conv_ms=conv_ms, bound_ms=b_ms,
-                         bound_s1_ms=b1_ms, bound_by=b_by, err=err))
+            int_matmul.im2col(x4, *geom, 0)[0], w1[0].t()), iters=5)
+        bound = {kr: bound_ms(nb, 2 * m * n * kk * (2 if kr[0] == "S=2"
+                                                    else 1), INT8_OPS)
+                 for kr, nb in bytes_.items()}
+        print(f"  {label} (method {shapes.get(key, {})}, uniform "
+              f"{uniform_shapes.get(key, {})}): " + ", ".join(
+                  f"{t} {r} {v:.4f} ms (bound {bound[(t, r)][0]:.4f} by "
+                  f"{bound[(t, r)][1]})" for (t, r), v in ms.items())
+              + f"; plain (S=2) {plain_ms:.4f}, cuDNN bf16 S=1 "
+              f"{lib['S=1']:.4f} / S=2 {lib['S=2']:.4f}, im2col + _int_mm "
+              f"{mm_ms:.4f}; sums and {len(rqs_by[1])} requant variants "
+              "bit-exact at S = 1, 2 and offsets 0, 128", flush=True)
+        rows.append(dict(
+            shape=key, roles=shapes.get(key, {}),
+            uniform_roles=uniform_shapes.get(key, {}),
+            ms={r: v for (t, r), v in ms.items() if t == "S=2"},
+            ms_s1={r: v for (t, r), v in ms.items() if t == "S=1"},
+            bound_ms={r: v[0] for (t, r), v in bound.items() if t == "S=2"},
+            bound_s1_ms={r: v[0] for (t, r), v in bound.items()
+                         if t == "S=1"},
+            bound_by={r: v[1] for (t, r), v in bound.items() if t == "S=2"},
+            plain_ms=plain_ms, library_ms=lib["S=2"],
+            library_s1_ms=lib["S=1"], im2col_int_mm_ms=mm_ms, err=0.0))
     return rows
 
 
@@ -547,7 +834,7 @@ def check_fake_quant(torch, gen, fq, act_shapes):
     and a ragged (10, 130). Timed beside the bound (8 bytes per element)
     and torch.fake_quantize_per_tensor_affine / _per_channel_affine (a
     yardstick: they multiply by the reciprocal)."""
-    dev = "cuda"
+    dev = DEVICE
     cases = [(f"act {r}x{c}", r, c, n, False, 4)
              for (r, c), n in sorted(act_shapes.items(), reverse=True)]
     cases += [("weight stem 64x147, 8-bit", 64, 147, 1, True, 8),
@@ -597,7 +884,7 @@ def check_fake_quant_grad(torch, gen, fq):
     fake_quant_weight) against autograd through the plain version, a fifth
     of the elements on exact codes: grad x equal, grad delta and zp within
     GRAD_RTOL of the largest."""
-    dev = "cuda"
+    dev = DEVICE
     rows = []
     for kind, shape, bits in (("act", (64, 28, 28, 128), 4),
                               ("weight", (512, 256, 3, 3), 2)):
@@ -741,12 +1028,26 @@ def kernel_counters():
 
 
 def reset_counts():
+    from shiftedscalequantization_tpu_torch import deploy
     for fn in kernel_counters():
         fn.launches = 0
+    deploy.quantize_out.unfused = 0
 
 
 def counts():
-    return {fn.__name__: fn.launches for fn in kernel_counters()}
+    """Each kernel's launches, and ``unfused``: the requants deploy left
+    to PyTorch elementwise ops."""
+    from shiftedscalequantization_tpu_torch import deploy
+    return {**{fn.__name__: fn.launches for fn in kernel_counters()},
+            "unfused": deploy.quantize_out.unfused}
+
+
+def check_unfused(got, path):
+    """Fail unless a path's deploy forward left UNFUSED[path] requants to
+    PyTorch elementwise ops."""
+    if got != UNFUSED[path]:
+        raise AssertionError(f"{path}: {got} requants left to PyTorch "
+                             f"elementwise, want {UNFUSED[path]}")
 
 
 def check_counts(got, **want):
@@ -934,6 +1235,7 @@ def recon_phases(torch, gen):
     sync()
     dep_counts = counts()
     check_counts(dep_counts, int8_conv=19, stem_fused=1)
+    check_unfused(dep_counts["unfused"], "resnet18_reconstructed")
     if not (bool(torch.isfinite(rsim).all())
             and bool(torch.isfinite(rdep).all())):
         raise AssertionError("recon sim or deploy logits not finite")
@@ -956,7 +1258,8 @@ def recon_phases(torch, gen):
                     for n, r in rratios.items()) / rgroups
                 for i in range(len(SHIFT_TARGETS))]
     print(f"  plan kinds {rcounts}; deploy launches int8_conv "
-          f"{dep_counts['int8_conv']}, stem {dep_counts['stem_fused']}; "
+          f"{dep_counts['int8_conv']}, stem {dep_counts['stem_fused']}, "
+          f"requants left to PyTorch elementwise {dep_counts['unfused']}; "
           f"sim forward {sim_ms:.3f} ms/batch, deploy forward "
           f"{rdeploy_ms:.3f} ms/batch; deploy vs sim: logit rel-MSE "
           f"{r_rel:.4e} (gate {RELMSE_GATE:g}), top-1 agreement "
@@ -975,6 +1278,7 @@ def recon_phases(torch, gen):
     return dict(cal_counts=cal_counts, recon_rows=recon_rows,
                 recon_s=recon_s, par=par, flips=flips, cpu_s=cpu_s,
                 rcounts=rcounts, sim_counts=sim_counts, sim_ms=sim_ms,
+                unfused=dep_counts["unfused"],
                 rdeploy_ms=rdeploy_ms, r_rel=r_rel, r_agree=r_agree,
                 r_margin=r_margin, probe=probe,
                 rc_rel=rc_rel, roverall=roverall)
@@ -990,7 +1294,7 @@ def main():
     from shiftedscalequantization_tpu_torch import quantize as Q
     from shiftedscalequantization_tpu_torch.graph import Flags, forward
     from shiftedscalequantization_tpu_torch.ops.cuda import _build, \
-        depthwise, int_matmul, mbconv, packed, stem
+        depthwise, int_matmul, mbconv, packed, requant, stem
     from shiftedscalequantization_tpu_torch.ops.cuda import fake_quant as fq
     from shiftedscalequantization_tpu_torch.recon import engine
 
@@ -1011,14 +1315,14 @@ def main():
     print("  nvcc build " + (f"{built:.2f} s" if built is not None
                              else "reused (same sources)"), flush=True)
     for line in _build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line \
+                or "spill" in line:
             print("  ptxas " + line.strip().removeprefix("ptxas info    : "),
                   flush=True)
     phase("build", t0)
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    packed_rows = check_packed(torch, gen, packed)
     stem_rows = check_stem(torch, gen, stem)
     qmm_rows = check_quant_matmul(torch, gen, int_matmul)
     phase("kernels", t0)
@@ -1042,8 +1346,11 @@ def main():
                                    device="cuda")
     torch.cuda.synchronize()
     launches = counts()
-    print(f"  launches in one deploy forward: {launches}", flush=True)
+    unfused = {"resnet18": launches.pop("unfused")}
+    print(f"  launches in one deploy forward: {launches}; requants left "
+          f"to PyTorch elementwise: {unfused['resnet18']}", flush=True)
     check_counts(launches, stem_fused=1, packed_quant_matmul=3, int8_conv=16)
+    check_unfused(unfused["resnet18"], "resnet18")
     if tuple(logits.shape) != (BATCH, 1000) \
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError("deploy logits not finite or misshapen")
@@ -1052,7 +1359,15 @@ def main():
     deploy_ms = time_cuda(fwd, iters=5, warmup=1)
     print(f"  deploy forward batch {BATCH}: {deploy_ms:.3f} ms/batch",
           flush=True)
+    uniform_conv_shapes = int8_conv_shapes(graph, plan)
     phase("serving", t0)
+
+    t0 = time.perf_counter()
+    packed_rows = check_packed(torch, gen, packed, requant, deploy,
+                               packed_shapes(graph, dparams, plan))
+    if [r["roles"] for r in packed_rows] != [{"sums": 1}] * 3:
+        raise AssertionError(f"packed roles {packed_rows}")
+    phase("packed kernel", t0)
 
     t0 = time.perf_counter()
     flags = Q.act_flags(graph, cfg, base=Flags().all_weights(graph))
@@ -1085,21 +1400,22 @@ def main():
     if mkind_counts != MNV2_KINDS:
         raise AssertionError(f"MobileNetV2 plan kinds {mkind_counts}, want "
                              f"{MNV2_KINDS}")
-    dw_shapes, pk_shapes = mnv2_path_shapes(mg, mdparams, mplan)
+    mdw_shapes = dw_shapes(mg, mplan)
+    mpk_shapes = packed_shapes(mg, mdparams, mplan)
     phase("mnv2 setup", t0)
 
     t0 = time.perf_counter()
-    dw_rows = check_dw(torch, gen, depthwise, dw_shapes)
+    dw_rows = check_dw(torch, gen, depthwise, mdw_shapes)
     if sum(r["count"] for r in dw_rows) != 16 or len(dw_rows) != 9:
-        raise AssertionError(f"dw shapes {dw_shapes}")
-    mpk_rows = check_packed(
-        torch, gen, packed,
-        [(f"mnv2 ({c}x)", m, k, n)
-         for (m, k, n), c in sorted(pk_shapes.items(), reverse=True)],
-        iters=5)
-    for r in mpk_rows:
-        r["count"] = pk_shapes[tuple(r["shape"])]
+        raise AssertionError(f"dw shapes {mdw_shapes}")
     phase("dw kernel", t0)
+
+    t0 = time.perf_counter()
+    mpk_rows = check_packed(torch, gen, packed, requant, deploy, mpk_shapes,
+                            iters=5)
+    if sum(sum(r["roles"].values()) for r in mpk_rows) != 34:
+        raise AssertionError(f"packed shapes {mpk_shapes}")
+    phase("packed kernel", t0)
 
     t0 = time.perf_counter()
     mb_rows = check_mbconv(torch, gen, mbconv)
@@ -1112,9 +1428,12 @@ def main():
                                     device="cuda")
     torch.cuda.synchronize()
     mlaunches = counts()
-    print(f"  launches in one deploy forward: {mlaunches}", flush=True)
+    unfused["mobilenetv2"] = mlaunches.pop("unfused")
+    print(f"  launches in one deploy forward: {mlaunches}; requants left "
+          f"to PyTorch elementwise: {unfused['mobilenetv2']}", flush=True)
     check_counts(mlaunches, dw_conv3x3_int8=16, packed_quant_matmul=34,
                  stem_fused=0, mbconv_fused=0, int8_conv=0)
+    check_unfused(unfused["mobilenetv2"], "mobilenetv2")
     if tuple(mlogits.shape) != (BATCH, 1000) \
             or not bool(torch.isfinite(mlogits).all()):
         raise AssertionError("deploy logits not finite or misshapen")
@@ -1182,9 +1501,12 @@ def main():
     phase("method setup", t0)
 
     t0 = time.perf_counter()
-    conv_rows = check_int8_conv(torch, gen, int_matmul, conv_shapes)
-    if sum(r["count"] for r in conv_rows) != 19:
-        raise AssertionError(f"int8_conv shapes {conv_shapes}")
+    conv_rows = check_int8_conv(torch, gen, int_matmul, requant, deploy,
+                                conv_shapes, uniform_conv_shapes)
+    if sum(sum(r["roles"].values()) for r in conv_rows) != 19 \
+            or sum(sum(r["uniform_roles"].values()) for r in conv_rows) != 16:
+        raise AssertionError(f"int8_conv shapes {conv_shapes} / uniform "
+                             f"{uniform_conv_shapes}")
     phase("int8_conv kernel", t0)
 
     t0 = time.perf_counter()
@@ -1194,9 +1516,13 @@ def main():
                                     device="cuda")
     torch.cuda.synchronize()
     slaunches = counts()
-    print(f"  launches in one deploy forward: {slaunches}", flush=True)
+    unfused["resnet18_shifted"] = slaunches.pop("unfused")
+    print(f"  launches in one deploy forward: {slaunches}; requants left "
+          f"to PyTorch elementwise: {unfused['resnet18_shifted']}",
+          flush=True)
     check_counts(slaunches, int8_conv=19, stem_fused=1, packed_quant_matmul=0,
                  quant_matmul=0)
+    check_unfused(unfused["resnet18_shifted"], "resnet18_shifted")
     if tuple(slogits.shape) != (BATCH, 1000) \
             or not bool(torch.isfinite(slogits).all()):
         raise AssertionError("deploy logits not finite or misshapen")
@@ -1262,9 +1588,20 @@ def main():
     def per_forward(rows, key):
         return sum(r[key] * r.get("count", 1) for r in rows)
 
+    unfused["resnet18_reconstructed"] = res["unfused"]
     # one row per kernel; times and bounds are the work of one forward of
-    # each path the kernel runs on (packed: ResNet-18 and MobileNetV2)
+    # each path the kernel runs on, each unit in the mode its path runs it
+    # (packed: ResNet-18 uniform and MobileNetV2; int8_conv: the method
+    # path, with the uniform path's beside it)
     pk_all = packed_rows + mpk_rows
+
+    def sums_mode(rows, key="ms", roles="roles"):
+        return sum(c * r[key]["sums"] for r in rows
+                   for c in r[roles].values())
+
+    def per_path(rows, key, roles="roles"):
+        return sum(r[key] * c for r in rows for c in r[roles].values())
+
     kernels = [
         {"name": "packed_quant_matmul", "route": "cuda",
          "source": src + "packed_qmm.cu",
@@ -1275,11 +1612,15 @@ def main():
              "resnet18": launches["packed_quant_matmul"],
              "mobilenetv2": mlaunches["packed_quant_matmul"]},
          "max_abs_err": max(r["err"] for r in pk_all),
-         "ms": per_forward(pk_all, "ms"),
-         "plain_ms": per_forward(pk_all, "plain_ms"),
-         "bound_ms": per_forward(pk_all, "bound_ms"),
-         "bound_by": max(pk_all, key=lambda r: r["bound_ms"])["bound_by"],
-         "library_ms": per_forward(pk_all, "library_ms")},
+         "ms": path_time(pk_all),
+         "ms_by_path": {"resnet18": path_time(packed_rows),
+                        "mobilenetv2": path_time(mpk_rows)},
+         "ms_sums_mode": sums_mode(pk_all),
+         "plain_ms": per_path(pk_all, "plain_ms"),
+         "bound_ms": path_time(pk_all, "bound_ms"),
+         "bound_by": max(((r["bound_ms"][k], r["bound_by"][k])
+                          for r in pk_all for k in r["roles"]))[1],
+         "library_ms": per_path(pk_all, "library_ms")},
         {"name": "stem_fused", "route": "cuda",
          "source": src + "stem_fused.cu",
          "replaces": "shiftedscalequantization_tpu/ops/pallas/stem.py:66",
@@ -1288,6 +1629,8 @@ def main():
          "ms": stem_rows[0]["ms"], "plain_ms": stem_rows[0]["plain_ms"],
          "bound_ms": stem_rows[0]["bound_ms"],
          "bound_by": stem_rows[0]["bound_by"], "library_ms": None},
+        # dw's library yardstick: cuDNN's bf16 depthwise conv on the same
+        # codes, the conv alone
         {"name": "dw_conv3x3_int8", "route": "cuda",
          "source": src + "dw_conv3x3.cu",
          "replaces":
@@ -1298,7 +1641,7 @@ def main():
          "plain_ms": per_forward(dw_rows, "plain_ms"),
          "bound_ms": per_forward(dw_rows, "bound_ms"),
          "bound_by": max(dw_rows, key=lambda r: r["bound_ms"])["bound_by"],
-         "library_ms": None},
+         "library_ms": per_forward(dw_rows, "conv_alone_ms")},
         {"name": "mbconv_fused", "route": "cuda",
          "source": src + "mbconv_fused.cu",
          "replaces": "shiftedscalequantization_tpu/ops/pallas/mbconv.py:38",
@@ -1323,7 +1666,6 @@ def main():
          "bound_by": max(qmm_rows[:3],
                          key=lambda r: r["bound_ms"])["bound_by"],
          "library_ms": per_forward(qmm_rows[:3], "library_ms")},
-        # int8_conv: one method-path forward (19 units, two weight groups)
         # fake_quant: one recon-path sim forward (17 act sites and the
         # stem's 8-bit weight)
         {"name": "fake_quant", "route": "cuda",
@@ -1340,6 +1682,8 @@ def main():
          "bound_ms": per_forward(fq_rows, "bound_ms"),
          "bound_by": max(fq_rows, key=lambda r: r["bound_ms"])["bound_by"],
          "library_ms": per_forward(fq_rows, "library_ms")},
+        # int8_conv: one method-path forward (19 units, two weight groups);
+        # its library yardstick is two cuDNN bf16 convs per unit
         {"name": "int8_conv", "route": "cuda",
          "source": src + "int_matmul.cu",
          "replaces":
@@ -1351,13 +1695,23 @@ def main():
              "resnet18": launches["int8_conv"],
              "mobilenetv2": mlaunches["int8_conv"]},
          "max_abs_err": max(r["err"] for r in conv_rows),
-         "ms": per_forward(conv_rows, "ms"),
-         "plain_ms": per_forward(conv_rows, "plain_ms"),
-         "bound_ms": per_forward(conv_rows, "bound_ms"),
-         "bound_by": max(conv_rows, key=lambda r: r["bound_ms"])["bound_by"],
-         "library_ms": None},
+         "ms": path_time(conv_rows),
+         "ms_sums_mode": sums_mode(conv_rows),
+         "ms_uniform_s1": path_time(conv_rows, "ms_s1", "uniform_roles"),
+         "ms_uniform_s1_sums_mode": sums_mode(conv_rows, "ms_s1",
+                                              "uniform_roles"),
+         "plain_ms": per_path(conv_rows, "plain_ms"),
+         "bound_ms": path_time(conv_rows, "bound_ms"),
+         "bound_uniform_s1_ms": path_time(conv_rows, "bound_s1_ms",
+                                          "uniform_roles"),
+         "bound_by": max(((r["bound_ms"][k], r["bound_by"][k])
+                          for r in conv_rows for k in r["roles"]))[1],
+         "library_ms": per_path(conv_rows, "library_ms"),
+         "library_uniform_s1_ms": per_path(conv_rows, "library_s1_ms",
+                                           "uniform_roles")},
     ]
     print(json.dumps({"packed_shapes": packed_rows, "stem": stem_rows,
+                      "requants_left_to_pytorch": unfused,
                       "deploy_ms_per_batch": deploy_ms,
                       "deploy_sim_rel_mse": rel_mse,
                       "deploy_sim_top1_agreement": agree,

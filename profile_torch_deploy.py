@@ -47,7 +47,7 @@ PLANS = {
                     "SSQ_STEM_1PASS": "1"},
         "no kernels": {"SSQ_DW_KERNEL": "0", "SSQ_PACKED": "0",
                        "SSQ_STEM_1PASS": "1"}}}
-GROUPS = (("int8_conv kernel", ("int8_gemm_kernel",)),
+GROUPS = (("int8_conv kernel", ("igemm_kernel",)),
           ("stem kernel", ("stem_fused_kernel",)),
           ("packed kernel", ("packed_qmm_kernel",)),
           ("dw kernel", ("dw_conv3x3_kernel",)),

@@ -23,7 +23,12 @@ integer route here: a dense conv or linear unit goes through
 ``ops/cuda/int_matmul.int8_conv`` (the implicit-GEMM kernel on the card,
 its plain version on the CPU), a depthwise conv through nine shifted int32
 multiply-adds. No cuDNN float conv touches act codes, since TF32 and
-Winograd would flip them. The plan still names the kinds the JAX package
+Winograd would flip them. An ``int8_conv`` or ``packed`` unit hands its
+launch to its consumer (``_Deferred``): the requant onto an int8 or
+biased site under none, relu or relu6 (and a residual block's requant,
+for its last unit) runs in the kernel's epilogue, with the terms
+``quantize_out`` builds; ``quantize_out.unfused`` counts the requants
+left to PyTorch elementwise ops. The plan still names the kinds the JAX package
 would pick for other graphs; ``int8_bd``, ``int8_pair``, ``float_s2d``,
 other grouped integer convs and pair transport raise NotImplementedError
 when reached.
@@ -35,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +52,7 @@ from .ops import wquant as W
 from .ops.cuda.depthwise import dw_conv3x3_int8
 from .ops.cuda.int_matmul import int8_conv
 from .ops.cuda.packed import pack_codes, packed_quant_matmul
+from .ops.cuda.requant import Requant, clip as _clip, requant_plain
 from .ops.cuda.stem import stem_fused
 
 UNPORTED_KINDS = ("int8_bd", "int8_pair", "float_s2d")
@@ -454,6 +460,23 @@ class _Pending:
     bias: Optional[torch.Tensor]
 
 
+@dataclasses.dataclass
+class _Deferred:
+    """A unit's kernel launch held back for its consumer, so that the
+    requant runs in the kernel's epilogue: ``launch(rq)`` returns the int8
+    codes of the ``Requant`` rq, ``launch(None)`` the sums, whose value is
+    ``_Pending(sums, scale, bias)`` (``pending``) or the f32 sums
+    themselves."""
+    launch: Callable
+    scale: Optional[torch.Tensor] = None
+    bias: Optional[torch.Tensor] = None
+    pending: bool = True
+
+    def sums(self):
+        out = self.launch(None)
+        return _Pending(out, self.scale, self.bias) if self.pending else out
+
+
 def _finish_affine(acc, sc, b):
     y = acc if sc is None else acc * sc
     return y if b is None else y + b
@@ -483,7 +506,8 @@ def _int_unit(spec: UnitSpec, d: DeployUnit, xi, offset: int, delta):
     """Exact integer conv/linear of int8 feed codes ``xi`` whose centered
     value is ``xi + offset``, with its epilogue pending: padding carries
     -offset (centered zero) and the offset's share comes back as offset *
-    sum(w). A baked unit sums its groups through the scale table."""
+    sum(w). A baked unit sums its groups through the scale table. Dense
+    units return the int8_conv launch deferred to their consumer."""
     if spec.kind == "conv" and spec.groups == spec.in_ch == spec.out_ch \
             and spec.groups > 1:
         if d.w_groups is None:
@@ -502,22 +526,21 @@ def _int_unit(spec: UnitSpec, d: DeployUnit, xi, offset: int, delta):
     else:
         geom = ((1, 1), (1, 1), (0, 0))
         x4 = xi.reshape(xi.shape[0], 1, 1, xi.shape[1])
-    # int32 sums, or (baked unit) the f32 scale-table sum
-    out = int8_conv(x4.contiguous(), d.w_mat, *geom, pad_value=-offset,
-                    group_scales=d.group_scales, act_delta=delta,
-                    acc_offset=offset * d.w_sum if offset else None)
-    scale = None
-    if d.w_groups is None:
-        out, scale = out.to(torch.float32), d.scale * delta
-    if spec.kind != "conv":
-        out = out.reshape(xi.shape[0], -1)
-    return _Pending(out, scale, d.bias)
+    acc_offset = offset * d.w_sum if offset else None
 
+    def launch(rq):
+        # int32 sums, the f32 scale-table sum (baked unit), or int8 codes
+        out = int8_conv(x4.contiguous(), d.w_mat, *geom, pad_value=-offset,
+                        group_scales=d.group_scales, act_delta=delta,
+                        acc_offset=acc_offset, requant=rq)
+        if rq is None and d.w_groups is None:
+            out = out.to(torch.float32)
+        if spec.kind != "conv":
+            out = out.reshape(xi.shape[0], -1)
+        return out
 
-def _clip(x, lo, hi):
-    """clip with float or 0-d tensor bounds."""
-    x = torch.maximum(x, lo) if torch.is_tensor(lo) else x.clamp(min=lo)
-    return torch.minimum(x, hi) if torch.is_tensor(hi) else x.clamp(max=hi)
+    scale = d.scale * delta if d.w_groups is None else None
+    return _Deferred(launch, scale, d.bias)
 
 
 def _max_pool_codes(t, window, stride, padding):
@@ -536,6 +559,188 @@ def _max_pool_codes(t, window, stride, padding):
     return out.contiguous()
 
 
+@dataclasses.dataclass
+class _Ctx:
+    """What the value plumbing of one deploy forward needs: the act steps
+    (with the plan's synthetic sum sites) and the transport of each site."""
+    act_steps: dict
+    int8_sites: frozenset
+    biased_sites: frozenset
+
+    def to_float(self, v):
+        kind, t, site = v
+        if kind == "f32":
+            return t
+        delta = self.act_steps[site][0]
+        if kind == "biased":
+            return (t.to(torch.float32) + 128.0) * delta
+        return t.to(torch.float32) * delta
+
+    def materialize(self, val, act=None):
+        if isinstance(val, _Deferred):
+            val = val.sums()
+        if isinstance(val, tuple):
+            return _activation(act, self.to_float(val))
+        if isinstance(val, _Pending):
+            return _activation(act, _finish_affine(val.acc, val.scale,
+                                                   val.bias))
+        return _activation(act, val)
+
+    def affine(self, val, inv):
+        """(acc, M, C) of the requant's multiply-add acc*M + C for ``val``
+        onto a grid of step 1/inv; acc is None where the value is not
+        there (a deferred launch, a kind-only tuple)."""
+        if isinstance(val, _Pending) \
+                or (isinstance(val, _Deferred) and val.pending):
+            acc = val.acc if isinstance(val, _Pending) else None
+            M = inv if val.scale is None else val.scale * inv
+            C = 0.5 + (0.0 if val.bias is None else val.bias * inv)
+            return acc, M, C
+        if isinstance(val, tuple):
+            kind_v, tv, site_v = val
+            if kind_v == "f32":
+                return tv, inv, 0.5
+            acc = None if tv is None else tv.to(torch.float32)
+            M = self.act_steps[site_v][0] * inv
+            C = 0.5 + 128.0 * M if kind_v == "biased" else 0.5
+            return acc, M, C
+        return (None if isinstance(val, _Deferred) else val), inv, 0.5
+
+    def residual(self, residual, inv, C):
+        """(r, Mr, C): the residual's term r*Mr of the multiply-add, C with
+        a biased residual's offset folded in."""
+        kind_r, tr, site_r = residual
+        if kind_r == "f32":
+            return tr, inv, C
+        Mr = self.act_steps[site_r][0] * inv
+        return tr, Mr, (C + 128.0 * Mr if kind_r == "biased" else C)
+
+    def clip(self, site, act, inv):
+        """(zp0, lo, hi, sub, kind) of a requant onto an int8 or biased
+        site after none, relu or relu6 (folded into the clip); None for
+        other sites and activations."""
+        delta, zp, n_bits = self.act_steps[site]
+        if act not in (None, "relu", "relu6"):
+            return None
+        if site in self.int8_sites:
+            zp0, lo, hi, sub, kind = zp, 0.0, 2.0 ** n_bits - 1, zp, "codes"
+        elif site in self.biased_sites:
+            zp0, lo, hi, sub, kind = (torch.zeros_like(zp), 0.0, 255.0,
+                                      128.0, "biased")
+        else:
+            return None
+        lo, hi, _ = _fold_act(act, zp0, lo, hi, inv)
+        return zp0, lo, hi, sub, kind
+
+
+def _fold_act(act, zp0, lo, hi, inv):
+    """(lo, hi, act left to apply): relu and relu6 folded into the code
+    clip of a site with zero point zp0 and step 1/inv."""
+    if act not in ("relu", "relu6"):
+        return lo, hi, act
+    lo = torch.clamp(zp0, min=lo)                        # code(0) == zp
+    if act == "relu6":
+        hi = torch.clamp(torch.floor(6.0 * inv + 0.5) + zp0, max=hi)
+    return lo, hi, None
+
+
+def quantize_out(ctx: _Ctx, val, site, act=None, residual=None):
+    """Producer-side epilogue + quantization onto the site grid, fused
+    into one multiply-add in code space: q = clip(floor(acc*M [+ r*Mr]
+    + C + zp), lo, hi), clamp activations folded into the clip. A deferred
+    int8_conv / packed launch runs it in its kernel's epilogue (an int8 or
+    biased site, none / relu / relu6); every other requant runs as PyTorch
+    elementwise ops and adds one to ``quantize_out.unfused``."""
+    if isinstance(val, tuple) and residual is None and val[2] == site:
+        return val          # kernel output already on this site's grid
+    st = ctx.act_steps.get(site)
+    if st is None:
+        y = ctx.materialize(val)
+        if residual is not None:
+            y = y + ctx.to_float(residual)
+        return ("f32", _activation(act, y), None)
+    delta, zp, n_bits = st
+    inv = 1.0 / delta
+    clip = ctx.clip(site, act, inv)
+    if isinstance(val, _Deferred) and clip is None:
+        val = val.sums()
+    acc, M, C = ctx.affine(val, inv)
+    r, Mr = None, None
+    if residual is not None:
+        r, Mr, C = ctx.residual(residual, inv, C)
+    if clip is not None:
+        zp0, lo, hi, sub, kind = clip
+        rq = Requant(m1=M, c1=C + zp0, q1=(lo, hi, sub)) if r is None \
+            else Requant(m2=M, c2=C + zp0, q2=(lo, hi, sub), r=r, mr=Mr)
+        if isinstance(val, _Deferred):
+            return (kind, val.launch(rq), site)
+        quantize_out.unfused += 1
+        return (kind, requant_plain(acc, rq), site)
+    quantize_out.unfused += 1
+    if r is not None:
+        r = r.to(torch.float32)
+
+    def codes_of(zp0, lo: float, hi: float):
+        lo, hi, a = _fold_act(act, zp0, lo, hi, inv)
+        arg = acc * M + (C + zp0) if r is None \
+            else acc * M + r * Mr + (C + zp0)
+        if a is not None:
+            y = _activation(a, (arg - (0.5 + zp0)) * delta)
+            return _clip(torch.floor(y * inv + 0.5) + zp0, lo, hi)
+        return _clip(torch.floor(arg), lo, hi)
+
+    if site in ctx.int8_sites:
+        q = codes_of(zp, 0.0, 2.0 ** n_bits - 1)
+        return ("codes", (q - zp).to(torch.int8), site)
+    if site in ctx.biased_sites:
+        q = codes_of(torch.zeros_like(zp), 0.0, 255.0)
+        return ("biased", (q - 128).to(torch.int8), site)
+    q = codes_of(zp, 0.0, 2.0 ** n_bits - 1)
+    return ("f32", (q - zp) * delta, None)
+
+
+quantize_out.unfused = 0
+
+
+def _block_requant(ctx: _Ctx, val: _Deferred, unit: UnitSpec,
+                   node: BlockSpec, res_v):
+    """The block's requant (with its residual) run in the epilogue of its
+    last unit's deferred launch, after that unit's own epilogue: its
+    requant onto its site, or without a site the f32 affine its sums
+    materialize to. None where the block's requant does not fuse."""
+    bst = ctx.act_steps.get(node.name)
+    if bst is None:
+        return None
+    binv = 1.0 / bst[0]
+    bclip = ctx.clip(node.name, node.post_activation, binv)
+    if bclip is None:
+        return None
+    ust = ctx.act_steps.get(unit.name)
+    if ust is None:
+        if unit.activation is not None:
+            return None
+        m1, c1, q1 = (val.scale, val.bias, None) if val.pending \
+            else (None, None, None)
+        val2 = ("f32", None, None)
+    else:
+        uinv = 1.0 / ust[0]
+        uclip = ctx.clip(unit.name, unit.activation, uinv)
+        if uclip is None:
+            return None
+        _, M1, C1 = ctx.affine(val, uinv)
+        zp0, lo, hi, sub, kind = uclip
+        m1, c1, q1 = M1, C1 + zp0, (lo, hi, sub)
+        val2 = (kind, None, unit.name)
+    _, M2, C2 = ctx.affine(val2, binv)
+    r, Mr = None, None
+    if res_v is not None:
+        r, Mr, C2 = ctx.residual(res_v, binv, C2)
+    zp0, lo, hi, sub, kind = bclip
+    rq = Requant(m1=m1, c1=c1, q1=q1, m2=M2, c2=C2 + zp0, q2=(lo, hi, sub),
+                 r=r, mr=Mr)
+    return (kind, val.launch(rq), node.name)
+
+
 def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
                    plan: Optional[dict] = None, device="cuda"):
     """Integer inference on NHWC input; returns the network output.
@@ -548,92 +753,13 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
     if plan is None:
         plan = make_deploy_plan(graph, dparams, act_steps)
     act_steps = {**act_steps, **plan.get("__sum_steps__", {})}
-    int8_sites = plan["__int8_sites__"]
-    biased_sites = plan.get("__biased_sites__", frozenset())
+    ctx = _Ctx(act_steps, plan["__int8_sites__"],
+               plan.get("__biased_sites__", frozenset()))
+    biased_sites = ctx.biased_sites
+    to_float, materialize = ctx.to_float, ctx.materialize
     stem_name = plan.get("__fused_stem__")
     stem_ok = (stem_name is not None and x.ndim == 4
                and x.shape[1] == x.shape[2] and x.shape[1] % 8 == 0)
-
-    def to_float(v):
-        kind, t, site = v
-        if kind == "f32":
-            return t
-        delta = act_steps[site][0]
-        if kind == "biased":
-            return (t.to(torch.float32) + 128.0) * delta
-        return t.to(torch.float32) * delta
-
-    def materialize(val, act=None):
-        if isinstance(val, tuple):
-            return _activation(act, to_float(val))
-        if isinstance(val, _Pending):
-            return _activation(act, _finish_affine(val.acc, val.scale,
-                                                   val.bias))
-        return _activation(act, val)
-
-    def quantize_out(val, site, act=None, residual=None):
-        """Producer-side epilogue + quantization onto the site grid, fused
-        into one multiply-add in code space: q = clip(floor(acc*M [+ r*Mr]
-        + C + zp), lo, hi), clamp activations folded into the clip."""
-        if isinstance(val, tuple) and residual is None and val[2] == site:
-            return val          # kernel output already on this site's grid
-        st = act_steps.get(site)
-        if st is None:
-            y = materialize(val)
-            if residual is not None:
-                y = y + to_float(residual)
-            return ("f32", _activation(act, y), None)
-        delta, zp, n_bits = st
-        inv = 1.0 / delta
-        if isinstance(val, _Pending):
-            acc = val.acc
-            M = inv if val.scale is None else val.scale * inv
-            C = 0.5 + (0.0 if val.bias is None else val.bias * inv)
-        elif isinstance(val, tuple):
-            kind_v, tv, site_v = val
-            if kind_v == "f32":
-                acc, M, C = tv, inv, 0.5
-            else:
-                acc = tv.to(torch.float32)
-                M, C = act_steps[site_v][0] * inv, 0.5
-                if kind_v == "biased":
-                    C = C + 128.0 * M
-        else:
-            acc, M, C = val, inv, 0.5
-        r, Mr = None, None
-        if residual is not None:
-            kind_r, tr, site_r = residual
-            if kind_r == "f32":
-                r, Mr = tr, inv
-            else:
-                r = tr.to(torch.float32)
-                Mr = act_steps[site_r][0] * inv
-                if kind_r == "biased":
-                    C = C + 128.0 * Mr
-
-        def codes_of(zp0, lo: float, hi: float):
-            a = act
-            if a in ("relu", "relu6"):
-                lo = torch.clamp(zp0, min=lo)            # code(0) == zp
-                if a == "relu6":
-                    hi = torch.clamp(torch.floor(6.0 * inv + 0.5) + zp0,
-                                     max=hi)
-                a = None
-            arg = acc * M + (C + zp0) if r is None \
-                else acc * M + r * Mr + (C + zp0)
-            if a is not None:
-                y = _activation(a, (arg - (0.5 + zp0)) * delta)
-                return _clip(torch.floor(y * inv + 0.5) + zp0, lo, hi)
-            return _clip(torch.floor(arg), lo, hi)
-
-        if site in int8_sites:
-            q = codes_of(zp, 0.0, 2.0 ** n_bits - 1)
-            return ("codes", (q - zp).to(torch.int8), site)
-        if site in biased_sites:
-            q = codes_of(torch.zeros_like(zp), 0.0, 255.0)
-            return ("biased", (q - 128).to(torch.int8), site)
-        q = codes_of(zp, 0.0, 2.0 ** n_bits - 1)
-        return ("f32", (q - zp) * delta, None)
 
     def int_feed(v, delta, zp, n_bits):
         """Feed value -> (int8 codes, offset), centered = codes + offset."""
@@ -685,25 +811,25 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
                 act=spec.activation or "none")
             return ("codes", out, spec.name)
         if kind_plan == "packed":
-            # 1x1 convs flatten to (B*H*W, C) rows; stride subsamples first
+            # 1x1 convs read their (strided) NHWC rows in the kernel; codes
+            # go in as int8 (their step scales the epilogue), f32 feeds are
+            # quantized on the way in
             delta, zp, n_bits = act_steps[feed_site]
             zpv = zp.reshape(-1)[0].to(torch.float32)
             dv = delta.reshape(-1)[0].to(torch.float32)
             vkind, t, _ = v
-            if vkind == "codes":
-                # codes are on the grid already: identity requant inside
-                # the kernel (delta 1) and the true step in the epilogue
-                xq, d_in, sc = t.to(torch.float32), 1.0, d.scale * dv
-            else:
-                xq, d_in, sc = to_float(v), dv, d.scale
+            xin = t if vkind == "codes" else to_float(v)
+            stride = 1
             if spec.kind == "conv" and spec.stride != (1, 1):
-                xq = xq[:, ::spec.stride[0], ::spec.stride[1], :]
-            lead = xq.shape[:-1]
-            out = packed_quant_matmul(
-                xq.reshape(-1, xq.shape[-1]).contiguous(), d.w_packed,
-                d.w_pack_zp, sc.contiguous(), d.bias.contiguous(), d_in, zpv,
-                d.w_pack_bits, n_bits)
-            return out.reshape(*lead, -1)
+                if spec.stride[0] == spec.stride[1]:
+                    stride = spec.stride[0]
+                else:
+                    xin = xin[:, ::spec.stride[0], ::spec.stride[1], :]
+            xin = xin.contiguous()
+            return _Deferred(lambda rq: packed_quant_matmul(
+                xin, d.w_packed, d.w_pack_zp, d.scale.contiguous(),
+                d.bias.contiguous(), dv, zpv, d.w_pack_bits, n_bits,
+                stride=stride, requant=rq), pending=False)
         if kind_plan in ("int8", "bf16_codes"):
             delta, zp, n_bits = act_steps[feed_site]
             xi, offset = int_feed(v, delta, zp, n_bits)
@@ -738,8 +864,16 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
                                         node.downsample.activation), None) \
                 if node.downsample is not None else v
         t = v
-        for u in node.units:
-            t = quantize_out(run_unit(u, t), u.name, u.activation)
+        for u in node.units[:-1]:
+            t = quantize_out(ctx, run_unit(u, t), u.name, u.activation)
+        last = node.units[-1]
+        val = run_unit(last, t)
+        if isinstance(val, _Deferred):
+            # the last unit's kernel writes the block site's codes
+            fused = _block_requant(ctx, val, last, node, res_v)
+            if fused is not None:
+                return fused
+        t = quantize_out(ctx, val, last.name, last.activation)
         no_site = act_steps.get(node.name) is None
         sum_site = f"{node.name}__sum__"
         if (node.post_activation is None and no_site
@@ -754,7 +888,7 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
             raise NotImplementedError(
                 f"pair transport ({node.name}: siteless residual of code "
                 "grids) is not ported")
-        return quantize_out(t, node.name, node.post_activation,
+        return quantize_out(ctx, t, node.name, node.post_activation,
                             residual=res_v)
 
     v = ("f32", x, None)
@@ -779,7 +913,7 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
                 elif node.op == "flatten":
                     v = ("f32", to_float(v).reshape(t.shape[0], -1), None)
             elif isinstance(node, UnitSpec):
-                v = quantize_out(run_unit(node, v), node.name,
+                v = quantize_out(ctx, run_unit(node, v), node.name,
                                  node.activation)
                 if node.name == stem_name and stem_ok:
                     pooled_by_stem = True

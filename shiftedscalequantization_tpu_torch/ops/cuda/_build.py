@@ -5,8 +5,10 @@ Every ``csrc/*.cu`` of the package is compiled for ``sm_90a`` by its own
 objects into ``build/torch_kernels/libssq_torch_kernels.so`` at the
 repository root, which ``.gitignore`` lists. The library has a plain C
 interface and is loaded with ``ctypes``: no PyTorch headers, so the build
-takes seconds. It runs at first use and is cached by a hash of the sources
-and the flags; a failed build raises with nvcc's stderr.
+takes seconds; ``int_matmul.cu`` alone includes CuTe (CUTLASS's headers,
+``CUTLASS_INCLUDE``, by default ``/usr/local/cutlass/include``) for its
+wgmma shared-memory layouts. It runs at first use and is cached by a hash
+of the sources and the flags; a failed build raises with nvcc's stderr.
 """
 from __future__ import annotations
 
@@ -24,15 +26,19 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_NAME = "libssq_torch_kernels.so"
 GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CUTLASS_INCLUDE = os.environ.get("CUTLASS_INCLUDE",
+                                 "/usr/local/cutlass/include")
 NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v"]
+              "-Xptxas=-v", "--expt-relaxed-constexpr",
+              "-I", CUTLASS_INCLUDE]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes. Every entry returns cudaGetLastError().
 SIGNATURES = {
-    # x, w_packed, w_zp, scale, bias, qp, out, M, K, N, bits, relu, stream
-    "ssq_packed_qmm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, codes, w_packed, w_zp, scale, bias, qp, out, B, H, W, K, stride,
+    # N, bits, relu, vec, requant, stream
+    "ssq_packed_qmm": [_P, _I] + [_P] * 6 + [_I] * 9 + [_P, _P],
     # x, w, scale, bias, qp, out, B, H, W, OC, stream
     "ssq_stem_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w (9, C), scalef, biasf, qp, out, B, H, W, C, stride, act, stream
@@ -43,8 +49,8 @@ SIGNATURES = {
     # x, w (K, N), scale, bias, qp, out, M, K, N, relu, stream
     "ssq_quant_matmul": [_P] * 6 + [_I] * 4 + [_P],
     # codes, w (S, N, K), table, acc_offset, delta, out, S, B, H, W, C, KH,
-    # KW, SH, SW, PH, PW, N, pad, vec, stream
-    "ssq_int8_conv": [_P] * 6 + [_I] * 14 + [_P],
+    # KW, SH, SW, PH, PW, N, pad, vec, requant, stream
+    "ssq_int8_conv": [_P] * 6 + [_I] * 14 + [_P, _P],
     # x, delta, zp, out, R, C, per_row, lo, hi, stream
     "ssq_fake_quant": [_P] * 4 + [_I] * 5 + [_P],
 }

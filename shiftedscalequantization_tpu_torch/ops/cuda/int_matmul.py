@@ -8,6 +8,9 @@ integer convolution of the deploy path's ``int8``/``bf16_codes`` units,
 which the JAX package leaves to XLA (``deploy._int_conv``). Its source
 note gives the bound on an H100 and what the design does about it.
 
+``int8_conv`` writes int32 sums, the f32 scale-table sum, or, given a
+``requant.Requant``, the next site's int8 codes straight from its epilogue.
+
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 the kernel for CUDA tensors, or raises on what the kernel does not take.
 The plain versions are exact: integer products summed in float64 (every
@@ -15,10 +18,13 @@ sum here is below 2^53) and f32 epilogues rounded step by step.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
 from .packed import _scalar
+from .requant import device_args, requant_plain
 
 MAX_GROUPS = 4          # weight groups (shift candidates) the kernel takes
 
@@ -127,10 +133,13 @@ def im2col(x, kernel, stride, padding, pad_value: int):
 
 
 def int8_conv_plain(codes, w_mat, kernel, stride, padding, pad_value=0,
-                    group_scales=None, act_delta=None, acc_offset=None):
+                    group_scales=None, act_delta=None, acc_offset=None,
+                    requant=None):
     """Plain PyTorch version: im2col, one exact integer product per weight
     group, ``acc_offset`` added; int32 sums (S = 1, no table), else the
-    f32 scale-table sum ``0 + sum_s float(acc_s) * (table[s] * delta)``."""
+    f32 scale-table sum ``0 + sum_s float(acc_s) * (table[s] * delta)``;
+    with ``requant``, that value (the sums as f32 without a table) through
+    ``requant.requant_plain``: int8 codes."""
     a, (b, ho, wo) = im2col(codes, kernel, stride, padding, pad_value)
     a = a.to(torch.float64)
     delta = None if group_scales is None \
@@ -141,13 +150,18 @@ def int8_conv_plain(codes, w_mat, kernel, stride, padding, pad_value=0,
         if acc_offset is not None:
             acc = acc + acc_offset[s]
         if group_scales is None:
-            return acc.reshape(b, ho, wo, -1)
+            out = acc
+            break
         out = out + acc.to(torch.float32) * (group_scales[s] * delta)
-    return out.reshape(b, ho, wo, -1)
+    out = out.reshape(b, ho, wo, -1)
+    if requant is not None:
+        return requant_plain(out.to(torch.float32), requant)
+    return out
 
 
 def int8_conv(codes, w_mat, kernel, stride, padding, pad_value=0,
-              group_scales=None, act_delta=None, acc_offset=None):
+              group_scales=None, act_delta=None, acc_offset=None,
+              requant=None):
     """Integer convolution of int8 NHWC codes (groups = 1).
 
     codes: (B, H, W, C) int8. w_mat: (S, N, KH*KW*C) int8 in (kh, kw, c)
@@ -156,12 +170,14 @@ def int8_conv(codes, w_mat, kernel, stride, padding, pad_value=0,
     ``group_scales`` (S must be 1) returns the int32 sums (B, Ho, Wo, N);
     with group_scales (S, N) f32 and the scalar ``act_delta`` returns
     ``0 + sum_s float(acc_s) * (group_scales[s] * act_delta)`` in f32.
-    CPU tensors take the plain version, at any shape; CUDA tensors launch
-    the kernel, which takes 1 <= S <= 4."""
+    With ``requant`` (a ``requant.Requant``) returns int8 codes (B, Ho,
+    Wo, N): that value (the int32 sums as f32 without a table) through
+    the requant epilogue. CPU tensors take the plain version, at any
+    shape; CUDA tensors launch the kernel, which takes 1 <= S <= 4."""
     if not codes.is_cuda:
         return int8_conv_plain(codes, w_mat, kernel, stride, padding,
                                pad_value, group_scales, act_delta,
-                               acc_offset)
+                               acc_offset, requant)
     dev = codes.device
     if codes.ndim != 4 or w_mat.ndim != 3:
         raise ValueError(f"codes {tuple(codes.shape)} / w_mat "
@@ -187,11 +203,24 @@ def int8_conv(codes, w_mat, kernel, stride, padding, pad_value=0,
         _check("acc_offset", acc_offset, dev, torch.int32, (s_n, n))
     if group_scales is None:
         table = delta = None
-        out = torch.empty((b, ho, wo, n), dtype=torch.int32, device=dev)
+        dtype = torch.int32
     else:
         _check("group_scales", group_scales, dev, torch.float32, (s_n, n))
         table, delta = group_scales, _scalar(act_delta, dev)
-        out = torch.empty((b, ho, wo, n), dtype=torch.float32, device=dev)
+        dtype = torch.float32
+    out = torch.empty((b, ho, wo, n), device=dev,
+                      dtype=dtype if requant is None else torch.int8)
+    rq = None
+    if requant is not None:
+        rq, keep = device_args(requant, n, out.shape, dev)  # noqa: F841
+    if s_n == 3:
+        # the kernel's wgmma widths take 1, 2 or 4 groups: a zero fourth
+        # group adds float(0) * (0 * delta), so v + 0.0, to every sum
+        w_mat = torch.cat([w_mat, w_mat.new_zeros((1, n, k))])
+        table = torch.cat([table, table.new_zeros((1, n))])
+        if acc_offset is not None:
+            acc_offset = torch.cat([acc_offset, acc_offset.new_zeros((1, n))])
+        s_n = 4
     # 16-byte gathers need whole 16-channel chunks at aligned addresses
     vec = int(c % 16 == 0 and codes.data_ptr() % 16 == 0
               and w_mat.data_ptr() % 16 == 0)
@@ -200,7 +229,9 @@ def int8_conv(codes, w_mat, kernel, stride, padding, pad_value=0,
     err = lib.ssq_int8_conv(
         codes.data_ptr(), w_mat.data_ptr(), ptr(table), ptr(acc_offset),
         ptr(delta), out.data_ptr(), s_n, b, h, w, c, kh, kw, sh, sw, ph, pw,
-        n, int(pad_value), vec, _build.stream_ptr(codes))
+        n, int(pad_value), vec,
+        None if rq is None else ctypes.addressof(rq),
+        _build.stream_ptr(codes))
     _build.check(lib, "ssq_int8_conv", err)
     int8_conv.launches += 1
     return out

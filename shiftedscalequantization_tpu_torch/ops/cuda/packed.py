@@ -5,6 +5,10 @@ Port of ``shiftedscalequantization_tpu/ops/pallas/packed.py`` (kernel
 ``unpack_codes``). The CUDA kernel is ``csrc/packed_qmm.cu``; its source
 note gives the bound on an H100 and what the design does about it.
 
+The kernel takes int8 codes or f32 rows, reads a strided 1x1 conv's rows
+in place, and writes f32 or, given a ``requant.Requant``, the next site's
+int8 codes from its epilogue.
+
 Packing differs from the TPU's strided layout, which served
 ``pltpu.repeat``: here ``pack_codes`` returns (N, ceil(K/f)) int32 with
 word (n, j) holding the raw codes k = j*f + s of column n in bit slot s
@@ -12,9 +16,12 @@ word (n, j) holding the raw codes k = j*f + s of column n in bit slot s
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
+from .requant import device_args, requant_plain
 
 
 def pack_codes(q: torch.Tensor, bits: int) -> torch.Tensor:
@@ -50,47 +57,84 @@ def _scalar(v, device) -> torch.Tensor:
     return torch.full((), float(v), dtype=torch.float32, device=device)
 
 
+def _rows(x, stride: int):
+    """(rows, leading shape) of a 4-D NHWC feed at a 1x1 conv's stride, or
+    of (M, K) rows."""
+    if x.ndim == 4:
+        if stride != 1:
+            x = x[:, ::stride, ::stride, :]
+        return x.reshape(-1, x.shape[-1]), x.shape[:-1]
+    return x, x.shape[:-1]
+
+
 def packed_quant_matmul_plain(x, w_packed, w_zp_n, scale_n, bias_n,
                               act_delta, act_zp, bits: int,
-                              act_n_bits: int = 4, relu: bool = False):
-    """Plain PyTorch version of the kernel: quantize x by division with
-    half-to-even rounding, unpack, integer product (exact in float64),
-    f32 epilogue acc * (scale * delta) + bias."""
+                              act_n_bits: int = 4, relu: bool = False,
+                              stride: int = 1, requant=None):
+    """Plain PyTorch version of the kernel: int8 codes as they are, or f32
+    quantized by division with half-to-even rounding; unpack, integer
+    product (exact in float64), f32 epilogue acc * (scale * delta) + bias,
+    then ``requant.requant_plain`` when ``requant`` is given."""
+    rows, lead = _rows(x, stride)
     delta = _scalar(act_delta, x.device)
-    zp = _scalar(act_zp, x.device)
-    q = torch.clamp(torch.round(x / delta) + zp, 0, 2 ** act_n_bits - 1) - zp
-    wc = (unpack_codes(w_packed, bits, x.shape[1]).to(torch.float64)
+    if x.dtype == torch.int8:
+        q = rows
+    else:
+        zp = _scalar(act_zp, x.device)
+        q = torch.clamp(torch.round(rows / delta) + zp, 0,
+                        2 ** act_n_bits - 1) - zp
+    wc = (unpack_codes(w_packed, bits, rows.shape[1]).to(torch.float64)
           - torch.round(w_zp_n).to(torch.float64))
     acc = q.to(torch.float64) @ wc
     out = acc.to(torch.float32) * (scale_n * delta) + bias_n
-    return torch.relu(out) if relu else out
+    if relu:
+        out = torch.relu(out)
+    out = out.reshape(*lead, -1)
+    return out if requant is None else requant_plain(out, requant)
 
 
 def packed_quant_matmul(x, w_packed, w_zp_n, scale_n, bias_n, act_delta,
                         act_zp, bits: int, act_n_bits: int = 4,
-                        relu: bool = False):
-    """y = relu?(dequant(int8mm(quant(x), unpack(w_packed) - zp_w))).
+                        relu: bool = False, stride: int = 1, requant=None):
+    """y = relu?(dequant(int8mm(q, unpack(w_packed) - zp_w))).
 
-    x: (M, K) f32. w_packed: (N, ceil(K/f)) int32 from pack_codes.
-    w_zp_n, scale_n, bias_n: (N,) f32. act_delta, act_zp: scalars (0-d
-    tensors stay on the device, so the call never waits for the card).
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    x: rows (M, K) or an NHWC feed (B, H, W, K), f32 (quantized on the
+    way in: q = clip(rint(x / delta) + zp) - zp) or int8 codes on the
+    grid of step ``act_delta`` (taken as they are). A 4-D feed is a 1x1
+    conv: ``stride`` subsamples its rows, which the kernel reads in place.
+    w_packed: (N, ceil(K/f)) int32 from pack_codes. w_zp_n, scale_n,
+    bias_n: (N,) f32. act_delta, act_zp: scalars (0-d tensors stay on the
+    device, so the call never waits for the card). Returns f32 (..., N),
+    or with ``requant`` (a ``requant.Requant``) int8 codes (..., N). CPU
+    tensors take the plain version; CUDA tensors launch the kernel.
     """
     if not x.is_cuda:
         return packed_quant_matmul_plain(x, w_packed, w_zp_n, scale_n,
                                          bias_n, act_delta, act_zp, bits,
-                                         act_n_bits, relu)
+                                         act_n_bits, relu, stride, requant)
     if bits not in (2, 4):
         raise ValueError(f"packed kernel takes 2- or 4-bit codes, got {bits}")
     if not 1 <= act_n_bits <= 8:
         raise ValueError(f"act_n_bits must be in 1..8, got {act_n_bits}")
-    m, k = x.shape
+    if x.dtype not in (torch.float32, torch.int8) or x.ndim not in (2, 4) \
+            or not x.is_contiguous():
+        raise ValueError(f"x: want contiguous f32 or int8 (M, K) or (B, H, "
+                         f"W, K), got {x.dtype} {tuple(x.shape)}")
+    if stride < 1 or (stride != 1 and x.ndim != 4):
+        raise ValueError(f"stride {stride} needs a 4-D feed")
+    if x.ndim == 4:
+        b, h, w, k = x.shape
+    else:
+        (b, k), h, w = x.shape, 1, 1
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    m = b * ho * wo
     n, kw = w_packed.shape
     if kw != -(-k // (32 // bits)):
         raise ValueError(f"w_packed {tuple(w_packed.shape)} does not hold "
                          f"K={k} {bits}-bit codes")
+    if x.numel() >= 2 ** 31 or m * n >= 2 ** 31 or -(-m // 128) > 65535:
+        raise ValueError(f"{m} x {n} outputs of K={k} are too many")
     for name, t, dtype, shape in (
-            ("x", x, torch.float32, (m, k)),
             ("w_packed", w_packed, torch.int32, (n, kw)),
             ("w_zp", w_zp_n, torch.float32, (n,)),
             ("scale", scale_n, torch.float32, (n,)),
@@ -104,12 +148,24 @@ def packed_quant_matmul(x, w_packed, w_zp_n, scale_n, bias_n, act_delta,
                       _scalar(act_zp, x.device),
                       _scalar(0.0, x.device),
                       _scalar(2 ** act_n_bits - 1, x.device)])
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    lead = (b, ho, wo) if x.ndim == 4 else (m,)
+    codes = x.dtype == torch.int8
+    if codes:
+        vec = next(v for v in (16, 8, 1)
+                   if k % v == 0 and x.data_ptr() % v == 0)
+    else:
+        vec = 4 if k % 4 == 0 and x.data_ptr() % 16 == 0 else 1
+    out = torch.empty((*lead, n), device=x.device,
+                      dtype=torch.float32 if requant is None else torch.int8)
+    rq = None
+    if requant is not None:
+        rq, keep = device_args(requant, n, out.shape, x.device)  # noqa: F841
     lib = _build.load()
     err = lib.ssq_packed_qmm(
-        x.data_ptr(), w_packed.data_ptr(), w_zp_n.data_ptr(),
+        x.data_ptr(), int(codes), w_packed.data_ptr(), w_zp_n.data_ptr(),
         scale_n.data_ptr(), bias_n.data_ptr(), qp.data_ptr(),
-        out.data_ptr(), m, k, n, bits, int(relu), _build.stream_ptr(x))
+        out.data_ptr(), b, h, w, k, stride, n, bits, int(relu), vec,
+        None if rq is None else ctypes.addressof(rq), _build.stream_ptr(x))
     _build.check(lib, "ssq_packed_qmm", err)
     packed_quant_matmul.launches += 1
     return out

@@ -26,7 +26,7 @@ def card():
     (4, 517, 256, 512, False)])
 def test_packed_kernel_matches_plain(card, bits, m, k, n, relu):
     """int32 accumulation is exact and the epilogue is rounded step by step
-    on both sides: atol 1e-4, rtol 1e-5."""
+    on both sides (__fmul_rn / __fadd_rn): bit-exact."""
     from shiftedscalequantization_tpu_torch.ops.cuda import packed as TP
     g = torch.Generator(device=card).manual_seed(0)
     x = torch.randn((m, k), generator=g, device=card)
@@ -43,8 +43,67 @@ def test_packed_kernel_matches_plain(card, bits, m, k, n, relu):
     got = TP.packed_quant_matmul(*args)
     torch.cuda.synchronize()
     assert TP.packed_quant_matmul.launches == before + 1
-    torch.testing.assert_close(got, TP.packed_quant_matmul_plain(*args),
-                               rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, TP.packed_quant_matmul_plain(*args))
+
+
+def _requants(g, card, n, out_shape):
+    """A requant onto a 4-bit site after relu, and the block requant after
+    the f32 affine with an int8 and an f32 residual (ops/cuda/requant)."""
+    from shiftedscalequantization_tpu_torch.ops.cuda.requant import Requant
+
+    def t(v):
+        return torch.tensor(v, device=card)
+
+    def cols(lo, hi):
+        return torch.rand((n,), generator=g, device=card) * (hi - lo) + lo
+
+    r8 = torch.randint(-7, 9, out_shape, generator=g, device=card,
+                       dtype=torch.int8)
+    rf = torch.randn(out_shape, generator=g, device=card)
+    return {
+        "site": Requant(m1=cols(0.5, 2.0), c1=cols(0.5, 8.5),
+                        q1=(t(0.0), t(15.0), t(0.0))),
+        "block codes": Requant(m1=cols(0.8, 1.2), c1=cols(-1, 1),
+                               m2=cols(0.5, 2.0), c2=cols(0.5, 8.5),
+                               q2=(t(0.0), t(15.0), t(8.0)), r=r8,
+                               mr=t(0.7)),
+        "block f32": Requant(m2=cols(0.5, 2.0), c2=cols(100.5, 140.5),
+                             q2=(t(0.0), t(255.0), t(128.0)), r=rf,
+                             mr=t(2.4)),
+    }
+
+
+@pytest.mark.parametrize("bits,b,h,k,n,stride,feed", [
+    (2, 4, 56, 64, 128, 2, "codes"), (2, 2, 28, 24, 144, 1, "codes"),
+    (4, 3, 14, 40, 72, 1, "codes"), (2, 2, 9, 130, 40, 2, "codes"),
+    (2, 2, 14, 64, 96, 2, "f32"), (4, 2, 7, 30, 24, 1, "f32")])
+def test_packed_codes_and_requant_match_plain(card, bits, b, h, k, n,
+                                              stride, feed):
+    """Codes fed as int8 (16-, 8- and 1-byte loads) or f32, a strided 1x1
+    conv read in place, sums and every requant mode: bit-exact."""
+    from shiftedscalequantization_tpu_torch.ops.cuda import packed as TP
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randint(-7, 9, (b, h, h, k), generator=g, device=card,
+                      dtype=torch.int8) if feed == "codes" \
+        else torch.randn((b, h, h, k), generator=g, device=card)
+    raw = torch.randint(0, 2 ** bits, (k, n), generator=g, device=card,
+                        dtype=torch.int32)
+    w_zp = torch.randint(0, 2 ** bits, (n,), generator=g,
+                         device=card).float()
+    scale = torch.rand((n,), generator=g, device=card) * 0.2 + 0.05
+    bias = torch.randn((n,), generator=g, device=card)
+    args = (x, TP.pack_codes(raw, bits), w_zp, scale, bias,
+            torch.tensor(0.25, device=card), torch.tensor(7.0, device=card),
+            bits, 4)
+    got = TP.packed_quant_matmul(*args, stride=stride)
+    assert torch.equal(got, TP.packed_quant_matmul_plain(*args,
+                                                         stride=stride))
+    for name, rq in _requants(g, card, n, got.shape).items():
+        got = TP.packed_quant_matmul(*args, stride=stride, requant=rq)
+        want = TP.packed_quant_matmul_plain(*args, stride=stride, requant=rq)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int8 and torch.equal(got, want), name
+        assert torch.unique(want).numel() >= 3, name
 
 
 @pytest.mark.parametrize("b,h,oc,biased", [(4, 224, 64, True),
@@ -300,6 +359,34 @@ def test_int8_conv_kernel_matches_plain(card, b, h, c, n, kern, stride, pad,
                               group_scales=table, act_delta=delta,
                               acc_offset=acc_off)
     assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,h,c,n,kern,stride,pad,s", [
+    (4, 14, 64, 64, 3, 1, 1, 1), (2, 15, 128, 72, 3, 2, 1, 2),
+    (2, 11, 3, 24, 5, 2, 2, 3), (1, 7, 48, 40, 3, 1, 1, 4)])
+def test_int8_conv_requant_matches_plain(card, b, h, c, n, kern, stride,
+                                         pad, s):
+    """The requant modes (a unit site; the block requant with int8 and
+    f32 residuals) on int32 sums (S = 1) and scale-table sums, with
+    16-byte and byte gathers: bit-exact."""
+    from shiftedscalequantization_tpu_torch.ops.cuda import int_matmul as TI
+    g = torch.Generator(device=card).manual_seed(6)
+    x = torch.randint(-8, 8, (b, h, h, c), generator=g, device=card,
+                      dtype=torch.int8)
+    w = torch.randint(-2, 3, (s, n, kern * kern * c), generator=g,
+                      device=card, dtype=torch.int8)
+    geom = ((kern, kern), (stride, stride), (pad, pad))
+    table = None if s == 1 else \
+        torch.rand((s, n), generator=g, device=card) * 0.2 + 0.05
+    kw = dict(group_scales=table, act_delta=torch.tensor(0.37, device=card))
+    sums = TI.int8_conv(x, w, *geom, **kw)
+    for name, rq in _requants(g, card, n, sums.shape).items():
+        if s == 1 and name == "site":
+            rq.m1 = rq.m1 * 0.05        # int32 sums: scale them to codes
+        got = TI.int8_conv(x, w, *geom, requant=rq, **kw)
+        want = TI.int8_conv_plain(x, w, *geom, requant=rq, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int8 and torch.equal(got, want), name
 
 
 def test_int8_conv_refuses_what_it_cannot_take(card):

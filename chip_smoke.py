@@ -16,7 +16,10 @@ non-zero exit and no result line:
 3. kernels: the stem and quant_matmul kernels against their plain
    PyTorch versions on the card, at the ResNet-18 serving shapes (batch
    256, 224x224; quant_matmul also at a ragged shape), with CUDA event
-   timings beside the card's bound;
+   timings beside the card's bound; the stem within one code of its plain
+   f32 version on < 2e-3 of outputs and torch.equal on 1/8-grid images,
+   in both transports, timed by CUDA-graph replay (eager beside) with
+   cuDNN's f32 and bf16 convs alone as yardsticks;
 4. serving: ResNet-18 ImageNet W2A4 at full width with seeded weights,
    MSE scale init, calibration on 16 images, deploy conversion, and one
    integer deploy forward at batch 256 with the fused stem and packed-W2
@@ -36,9 +39,10 @@ non-zero exit and no result line:
    package's kinds: 16 dw_int8, 34 packed, 1 bf16_codes, 1 float_1p,
    1 float;
 7. dw kernel: the depthwise kernel against its plain version, bit-exact,
-   at each distinct shape of the plan's 16 dw units, and timed beside
-   cuDNN's bf16 depthwise conv; the packed kernel as in 4 at each distinct
-   shape of the plan's 34 packed units;
+   at each distinct shape of the plan's 16 dw units and at one odd,
+   stride-2, C % 16 != 0 shape, timed by CUDA-graph replay (eager beside)
+   beside cuDNN's bf16 depthwise conv; the packed kernel as in 4 at each
+   distinct shape of the plan's 34 packed units;
 8. mbconv kernel: the fused inverted-residual kernel against its plain
    version, bit-exact, at three MobileNetV2 block shapes (it has no
    caller on the serving path), and timed;
@@ -116,6 +120,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS = 67e12                # H100 SXM f32, outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
 INT8_OPS = 1979e12               # H100 SXM int8 tensor cores, dense
 RELMSE_GATE = 1e-2
 CARD_CPU_GATE = 1e-8             # card deploy vs CPU deploy, grid images
@@ -435,39 +440,69 @@ def check_packed(torch, gen, packed, requant, deploy, shapes, iters=20):
 
 def check_stem(torch, gen, stem):
     """The ResNet-18 stem at batch 256, 224x224: biased 8-bit (the serving
-    site) and centered 4-bit transport."""
+    site) and centered 4-bit transport, launched on constants prepared
+    once as the deploy plan holds them. Within one code of the plain f32
+    version on < 2e-3 of outputs; on 1/8-grid images (every value
+    bf16-exact, every sum exact in f32) torch.equal. Timed by CUDA-graph
+    replay with the eager time beside; yardsticks: cuDNN's f32 conv alone
+    (TF32 off) and its bf16 conv alone on the same image and codes,
+    channels-last (the conv without the epilogue and pool)."""
+    import torch.nn.functional as F
     dev = DEVICE
     x = torch.randn((BATCH, HW, HW, 3), generator=gen, device=dev)
+    xg = torch.round(x * 8) / 8
     w = torch.randint(-120, 121, (64, 3, 7, 7), generator=gen,
                       device=dev).float()
     scale = torch.rand((64,), generator=gen, device=dev) * 0.003 + 0.001
     bias = torch.randn((64,), generator=gen, device=dev) * 0.1
+    xc = x.permute(0, 3, 1, 2)                    # channels-last NCHW view
+    wc = w.contiguous(memory_format=torch.channels_last)
+    xb, wb = xc.to(torch.bfloat16), wc.to(torch.bfloat16)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        f32_ms = time_graph(lambda: F.conv2d(xc, wc, None, 2, 3))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    bf16_ms = time_graph(lambda: F.conv2d(xb, wb, None, 2, 3))
+    hp = HW // 4
+    n_bytes = (x.numel() * 4 + 64 * stem.K * 2 + 2 * 64 * 4 + 16
+               + BATCH * hp * hp * 64)
+    conv_ops = 2 * BATCH * (HW // 2) ** 2 * 64 * 147
+    b_ms, b_by = bound_ms(n_bytes, 2 * conv_ops, BF16_FLOPS)
+    f32_bound, _ = bound_ms(n_bytes, conv_ops, F32_FLOPS)
     rows = []
     for label, delta, zp, qmax, coff in (("biased", 0.02, 0.0, 255.0, 128.0),
                                          ("centered", 0.1, 0.0, 15.0, 0.0)):
-        args = (x, w, scale, bias, delta, zp, qmax, coff)
-        got = stem.stem_fused(*args)
-        want = stem.stem_fused_plain(*args)
+        args = (w, scale, bias, delta, zp, qmax, coff)
+        k = stem.prepare_stem(*args)
+        got = stem.stem_fused_prepared(x, k)
+        want = stem.stem_fused_plain(x, *args)
+        grid_equal = torch.equal(stem.stem_fused_prepared(xg, k),
+                                 stem.stem_fused_plain(xg, *args))
         torch.cuda.synchronize()
         diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
         off = float((diff != 0).float().mean())
         worst = int(diff.max())
-        if worst > 1 or off > 2e-3:
+        if worst > 1 or off > 2e-3 or not grid_equal:
             raise AssertionError(f"stem {label}: {off:.3g} of codes off, "
-                                 f"max |diff| {worst}")
-        ms = time_cuda(lambda: stem.stem_fused(*args))
-        plain_ms = time_cuda(lambda: stem.stem_fused_plain(*args))
-        hp = HW // 4
-        n_bytes = (x.numel() * 4 + w.numel() * 4 + 2 * 64 * 4
-                   + BATCH * hp * hp * 64)
-        n_ops = 2 * BATCH * (HW // 2) ** 2 * 64 * 147
-        b_ms, b_by = bound_ms(n_bytes, n_ops, F32_FLOPS)
-        print(f"  stem {label}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-              f"plain {plain_ms:.4f}), {off:.3g} of codes off by "
-              f"<= {worst}", flush=True)
-        rows.append(dict(label=label, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, err=float(worst),
-                         off=off))
+                                 f"max |diff| {worst}, 1/8-grid images "
+                                 f"equal {grid_equal}")
+        ms = time_graph(lambda: stem.stem_fused_prepared(x, k))
+        eager_ms = time_cuda(lambda: stem.stem_fused_prepared(x, k))
+        plain_ms = time_cuda(lambda: stem.stem_fused_plain(x, *args))
+        print(f"  stem {label}: {ms:.4f} ms graph, {eager_ms:.4f} eager "
+              f"(bound {b_ms:.4f} ms by {b_by}: 2-pass bf16 on the tensor "
+              f"cores; f32-pipe bound {f32_bound:.4f}; plain {plain_ms:.4f};"
+              f" cuDNN conv alone f32 {f32_ms:.4f}, bf16 {bf16_ms:.4f}), "
+              f"{off:.3g} of codes off by <= {worst}, 1/8-grid images "
+              f"equal", flush=True)
+        rows.append(dict(label=label, ms=ms, eager_ms=eager_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         bound_f32_pipe_ms=f32_bound,
+                         cudnn_f32_conv_ms=f32_ms,
+                         cudnn_bf16_conv_ms=bf16_ms, err=float(worst),
+                         off=off, grid_equal=grid_equal))
     return rows
 
 
@@ -577,15 +612,24 @@ def dw_shapes(graph, plan):
     return dw
 
 
+# a depthwise shape outside MobileNetV2's, checked beside the path's:
+# odd H and W, stride 2, C % 16 != 0 (the kernel's 4-byte copy instance)
+DW_EXTRA_SHAPE = (15, 15, 28, 2)
+
+
 def check_dw(torch, gen, dw, shapes):
     """dw kernel vs its plain version, bit-exact, at each (H, W, C, stride)
-    of the path at batch 256, 4-bit codes in and out, W2 codes, relu6;
-    beside it cuDNN's bf16 channels-last depthwise conv of the same shape
-    (the conv alone, without the epilogue and requant)."""
+    of the path at batch 256 and at DW_EXTRA_SHAPE (count 0, outside the
+    per-forward sums), 4-bit codes in and out, W2 codes, relu6, launched
+    on constants prepared once as the deploy plan holds them; timed by
+    CUDA-graph replay with the eager time beside, and beside it cuDNN's
+    bf16 channels-last depthwise conv of the same shape (the conv alone,
+    without the epilogue and requant)."""
     import torch.nn.functional as F
     dev = DEVICE
     rows = []
-    for (h, w, c, stride), count in sorted(shapes.items(), reverse=True):
+    todo = sorted(shapes.items(), reverse=True) + [(DW_EXTRA_SHAPE, 0)]
+    for (h, w, c, stride), count in todo:
         x = torch.randint(-8, 8, (BATCH, h, w, c), generator=gen,
                           device=dev, dtype=torch.int8)
         wc = torch.randint(-2, 2, (c, 3, 3), generator=gen, device=dev,
@@ -594,31 +638,37 @@ def check_dw(torch, gen, dw, shapes):
         biasf = torch.randn((c,), generator=gen, device=dev) * 0.5
         args = (x, wc, scalef, biasf, torch.tensor(0.07, device=dev),
                 torch.tensor(7.0, device=dev), 15.0)
-        got = dw.dw_conv3x3_int8(*args, stride=stride, act="relu6")
+        k = dw.prepare_dw(*args[1:])
+        got = dw.dw_conv3x3_int8_prepared(x, k, stride, "relu6")
         want = dw.dw_conv3x3_int8_plain(*args, stride=stride, act="relu6")
         torch.cuda.synchronize()
         err = float((got.int() - want.int()).abs().max())
         if err != 0:
             raise AssertionError(f"dw {h}x{w}x{c}/s{stride}: max abs err "
                                  f"{err} codes")
-        ms = time_cuda(lambda: dw.dw_conv3x3_int8(*args, stride=stride,
-                                                  act="relu6"))
+        ms = time_graph(lambda: dw.dw_conv3x3_int8_prepared(x, k, stride,
+                                                            "relu6"))
+        eager_ms = time_cuda(lambda: dw.dw_conv3x3_int8_prepared(
+            x, k, stride, "relu6"))
         plain_ms = time_cuda(lambda: dw.dw_conv3x3_int8_plain(
             *args, stride=stride, act="relu6"))
         xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)       # channels_last
         wb = wc.reshape(c, 1, 3, 3).to(torch.bfloat16) \
             .contiguous(memory_format=torch.channels_last)
-        conv_ms = time_cuda(lambda: F.conv2d(xb, wb, None, stride, 1, 1, c))
+        conv_ms = time_graph(lambda: F.conv2d(xb, wb, None, stride, 1, 1,
+                                              c))
         ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-        n_bytes = BATCH * (h * w + ho * wo) * c + 9 * c + 8 * c + 12
+        n_bytes = BATCH * (h * w + ho * wo) * c + 12 * c + 8 * c + 12
         b_ms, b_by = bound_ms(n_bytes, 2 * 9 * BATCH * ho * wo * c,
                               INT8_OPS)
-        print(f"  dw {h}x{w}x{c}/s{stride} (x{count}): {ms:.4f} ms (bound "
-              f"{b_ms:.4f} ms by {b_by}, plain {plain_ms:.4f}, cuDNN bf16 "
-              f"conv alone {conv_ms:.4f}), bit-exact", flush=True)
+        print(f"  dw {h}x{w}x{c}/s{stride} (x{count}): {ms:.4f} ms graph, "
+              f"{eager_ms:.4f} eager (bound {b_ms:.4f} ms by {b_by}, plain "
+              f"{plain_ms:.4f}, cuDNN bf16 conv alone {conv_ms:.4f}), "
+              f"bit-exact", flush=True)
         rows.append(dict(shape=(h, w, c, stride), count=count, ms=ms,
-                         plain_ms=plain_ms, conv_alone_ms=conv_ms,
-                         bound_ms=b_ms, bound_by=b_by, err=err))
+                         eager_ms=eager_ms, plain_ms=plain_ms,
+                         conv_alone_ms=conv_ms, bound_ms=b_ms,
+                         bound_by=b_by, err=err))
     return rows
 
 
@@ -1406,7 +1456,7 @@ def main():
 
     t0 = time.perf_counter()
     dw_rows = check_dw(torch, gen, depthwise, mdw_shapes)
-    if sum(r["count"] for r in dw_rows) != 16 or len(dw_rows) != 9:
+    if sum(r["count"] for r in dw_rows) != 16 or len(dw_rows) != 10:
         raise AssertionError(f"dw shapes {mdw_shapes}")
     phase("dw kernel", t0)
 
@@ -1626,9 +1676,15 @@ def main():
          "replaces": "shiftedscalequantization_tpu/ops/pallas/stem.py:66",
          "launches": launches["stem_fused"],
          "max_abs_err": max(r["err"] for r in stem_rows),
-         "ms": stem_rows[0]["ms"], "plain_ms": stem_rows[0]["plain_ms"],
+         "ms": stem_rows[0]["ms"], "ms_eager": stem_rows[0]["eager_ms"],
+         "plain_ms": stem_rows[0]["plain_ms"],
          "bound_ms": stem_rows[0]["bound_ms"],
-         "bound_by": stem_rows[0]["bound_by"], "library_ms": None},
+         "bound_by": stem_rows[0]["bound_by"],
+         "bound_f32_pipe_ms": stem_rows[0]["bound_f32_pipe_ms"],
+         # yardsticks, not the same function: cuDNN's conv alone
+         "cudnn_f32_conv_ms": stem_rows[0]["cudnn_f32_conv_ms"],
+         "cudnn_bf16_conv_ms": stem_rows[0]["cudnn_bf16_conv_ms"],
+         "library_ms": None},
         # dw's library yardstick: cuDNN's bf16 depthwise conv on the same
         # codes, the conv alone
         {"name": "dw_conv3x3_int8", "route": "cuda",
@@ -1638,6 +1694,7 @@ def main():
          "launches": mlaunches["dw_conv3x3_int8"],
          "max_abs_err": max(r["err"] for r in dw_rows),
          "ms": per_forward(dw_rows, "ms"),
+         "ms_eager": per_forward(dw_rows, "eager_ms"),
          "plain_ms": per_forward(dw_rows, "plain_ms"),
          "bound_ms": per_forward(dw_rows, "bound_ms"),
          "bound_by": max(dw_rows, key=lambda r: r["bound_ms"])["bound_by"],

@@ -19,6 +19,10 @@ Prints, for the card named by nvidia-smi (name, power limit):
   units on the plain integer route, 1x1 convs on the integer GEMM or the
   integer route). And the port's float forward in bf16 (no quantizers),
   the JAX bench's baseline;
+- the host's time to issue one serving forward (wall clock of the
+  deploy_forward call, the card synchronised before and after each, so
+  it includes any wait the call makes on the card): where it is close to
+  the serving ms/batch, the host, not the card, sets the pace;
 - device time of one serving forward by kernel (torch.profiler), grouped
   into the port's kernels, integer GEMMs, copies (im2col and layout),
   and elementwise work (epilogues, requant), and the top 15
@@ -29,6 +33,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import chip_smoke
 
@@ -112,6 +117,15 @@ def main():
         lambda: forward(graph, params_bf16, qstate, xb, Flags(),
                         device="cuda"), iters=10, warmup=2)
 
+    host_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd("serving")()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    host_ms = sum(host_ms[2:]) / len(host_ms[2:])
+
     from torch.profiler import ProfilerActivity, profile
     fwd("serving")()
     torch.cuda.synchronize()
@@ -143,6 +157,7 @@ def main():
     for name, ts in times.items():
         print(f"  {name:11s} {' '.join(f'{t:.3f}' for t in ts)}")
     print(f"  bf16 float forward {bf16_ms:.3f}")
+    print(f"host time to issue one serving forward: {host_ms:.3f} ms")
     print(f"device time of one serving forward: {total_us / 1e3:.3f} ms")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:14s} {ms:8.3f} ms  {100 * ms * 1e3 / total_us:5.1f}%")
@@ -158,6 +173,7 @@ def main():
                                           row_limit=60))
     print(json.dumps({"device": smi, "arch": label, "deploy_ms": times,
                       "bf16_forward_ms": bf16_ms,
+                      "serving_host_issue_ms": host_ms,
                       "serving_device_ms": total_us / 1e3,
                       "groups_ms": groups}))
     return 0

@@ -31,7 +31,10 @@ for its last unit) runs in the kernel's epilogue, with the terms
 left to PyTorch elementwise ops. The plan still names the kinds the JAX package
 would pick for other graphs; ``int8_bd``, ``int8_pair``, ``float_s2d``,
 other grouped integer convs and pair transport raise NotImplementedError
-when reached.
+when reached. A plan also keeps, under ``__kernel_consts__``, the launch
+constants of its ``stem_fused`` and ``dw_int8`` units (weight layouts,
+folded scales, the grid's reciprocal), built once when the plan is made,
+so a forward launches those units' kernels and nothing else for them.
 
 Switches read, with the JAX package's meaning: ``SSQ_STEM_KERNEL``,
 ``SSQ_PACKED``, ``SSQ_STEM_1PASS``, ``SSQ_DW_KERNEL``.
@@ -49,11 +52,11 @@ from ._device import resolve_device
 from .graph import BlockSpec, Graph, OpSpec, UnitQuant, UnitSpec, \
     _activation, _fp32, conv2d, global_avg_pool, iter_units, max_pool
 from .ops import wquant as W
-from .ops.cuda.depthwise import dw_conv3x3_int8
+from .ops.cuda.depthwise import dw_conv3x3_int8_prepared, prepare_dw
 from .ops.cuda.int_matmul import int8_conv
 from .ops.cuda.packed import pack_codes, packed_quant_matmul
 from .ops.cuda.requant import Requant, clip as _clip, requant_plain
-from .ops.cuda.stem import stem_fused
+from .ops.cuda.stem import prepare_stem, stem_fused_prepared
 
 UNPORTED_KINDS = ("int8_bd", "int8_pair", "float_s2d")
 # units narrower than this take bf16_codes over int8 (the JAX package's
@@ -438,7 +441,28 @@ def make_deploy_plan(graph: Graph, dparams: dict, act_steps: dict,
     plan["__int8_sites__"] = int8_sites
     plan["__biased_sites__"] = biased_sites
     plan["__sum_steps__"] = sum_sites
+    plan["__kernel_consts__"] = {
+        u.name: _kernel_consts(plan[u.name][0], u, dparams[u.name],
+                               act_steps, plan[u.name][1], biased_sites)
+        for u in iter_units(graph)
+        if plan[u.name][0] in ("stem_fused", "dw_int8")}
     return plan
+
+
+def _kernel_consts(kind, u: UnitSpec, d, act_steps, site, biased_sites):
+    """What a ``stem_fused`` or ``dw_int8`` unit's launch reads besides its
+    input, built once per plan on the deploy params' device (deploy_forward
+    builds them again for an input on another device)."""
+    delta_o, zp_o, n_bits_o = act_steps[u.name]
+    zpv = zp_o.reshape(-1)[0].to(torch.float32)
+    if kind == "stem_fused":
+        coff = torch.full_like(zpv, 128.0) if u.name in biased_sites else zpv
+        w_eff = d.w_int if d.w_int is not None else d.w_fp
+        return prepare_stem(w_eff, d.scale, d.bias, delta_o, zpv,
+                            2.0 ** n_bits_o - 1, coff)
+    delta = act_steps[site][0]
+    return prepare_dw(d.w_int.reshape(u.out_ch, 3, 3), d.scale * delta,
+                      d.bias, delta_o, zpv, 2.0 ** n_bits_o - 1)
 
 
 def _round_act(x):
@@ -760,6 +784,18 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
     stem_name = plan.get("__fused_stem__")
     stem_ok = (stem_name is not None and x.ndim == 4
                and x.shape[1] == x.shape[2] and x.shape[1] % 8 == 0)
+    consts = plan.get("__kernel_consts__", {})
+
+    def unit_consts(spec: UnitSpec, device):
+        """The unit's prepared launch constants, on ``device``."""
+        k = consts.get(spec.name)
+        if k is None or k.device != device:
+            k = _kernel_consts(plan[spec.name][0], spec, dparams[spec.name],
+                               act_steps, plan[spec.name][1], biased_sites)
+            if k.device != device:
+                raise ValueError(f"{spec.name}: deploy params on "
+                                 f"{k.device}, input on {device}")
+        return k
 
     def int_feed(v, delta, zp, n_bits):
         """Feed value -> (int8 codes, offset), centered = codes + offset."""
@@ -785,15 +821,9 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
         if kind_plan == "stem_fused":
             # conv + relu + quant + maxpool in one kernel; the following
             # maxpool OpSpec is skipped by the walk below
-            delta, zp, n_bits = act_steps[spec.name]
-            zpv = zp.reshape(-1)[0].to(torch.float32)
+            xf = to_float(v).contiguous()
+            codes = stem_fused_prepared(xf, unit_consts(spec, xf.device))
             biased = spec.name in biased_sites
-            coff = torch.full_like(zpv, 128.0) if biased else zpv
-            w_eff = (d.w_int if d.w_int is not None else d.w_fp)
-            codes = stem_fused(to_float(v).contiguous(),
-                               w_eff.to(torch.float32).contiguous(),
-                               d.scale.contiguous(), d.bias.contiguous(),
-                               delta, zpv, 2.0 ** n_bits - 1, coff)
             return ("biased" if biased else "codes", codes, spec.name)
         if kind_plan == "dw_int8":
             # depthwise conv + epilogue + requant onto the unit's own grid
@@ -802,12 +832,9 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
             vkind, t, _ = v
             xi = t if vkind == "codes" \
                 else _quant_centered(to_float(v), delta, zp, n_bits)
-            delta_o, zp_o, n_bits_o = act_steps[spec.name]
-            out = dw_conv3x3_int8(
-                xi.contiguous(), d.w_int.reshape(spec.out_ch, 3, 3),
-                (d.scale * delta).contiguous(), d.bias.contiguous(),
-                delta_o, zp_o.reshape(-1)[0].to(torch.float32),
-                2.0 ** n_bits_o - 1, stride=spec.stride[0],
+            xi = xi.contiguous()
+            out = dw_conv3x3_int8_prepared(
+                xi, unit_consts(spec, xi.device), stride=spec.stride[0],
                 act=spec.activation or "none")
             return ("codes", out, spec.name)
         if kind_plan == "packed":

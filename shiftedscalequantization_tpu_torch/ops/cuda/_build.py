@@ -39,9 +39,10 @@ SIGNATURES = {
     # x, codes, w_packed, w_zp, scale, bias, qp, out, B, H, W, K, stride,
     # N, bits, relu, vec, requant, stream
     "ssq_packed_qmm": [_P, _I] + [_P] * 6 + [_I] * 9 + [_P, _P],
-    # x, w, scale, bias, qp, out, B, H, W, OC, stream
+    # x, w (wgmma B tiles, bf16), scale, bias, qp, out, B, H, W, OC, stream
     "ssq_stem_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, w (9, C), scalef, biasf, qp, out, B, H, W, C, stride, act, stream
+    # x, w (C, 3) tap words, scalef, biasf, qp, out, B, H, W, C, stride,
+    # act, stream
     "ssq_dw_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, we, ae, wd, ad, wp, ap, qp, out, B, H, W, CI, CE, CO, has_expand,
     # has_residual, stream

@@ -209,6 +209,70 @@ def test_dw_kernel_matches_plain(card, b, h, c, stride, act):
     assert TDW.dw_conv3x3_int8.launches == before + 1
 
 
+@pytest.mark.parametrize("b,h,w,c,stride", [
+    (5, 15, 15, 28, 2), (3, 9, 7, 12, 1), (2, 13, 11, 20, 2),
+    (5, 28, 28, 192, 2), (4, 7, 7, 960, 1), (3, 56, 56, 36, 1),
+    (2, 1, 1, 16, 1)])
+def test_dw_kernel_full_int8_range_matches_plain(card, b, h, w, c, stride):
+    """Codes and weights over the whole int8 range (the dp4a products'
+    signs), every act, a centered 4-bit grid and a centered 8-bit one, on
+    constants prepared once: bit-exact at ragged batches, odd and
+    non-square H x W, stride 2 and C % 16 != 0 (the 4-byte copy instance),
+    one launch each."""
+    from shiftedscalequantization_tpu_torch.ops.cuda import depthwise as TDW
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randint(-128, 128, (b, h, w, c), generator=g, device=card,
+                      dtype=torch.int8)
+    wc = torch.randint(-128, 128, (c, 3, 3), generator=g, device=card,
+                       dtype=torch.int8)
+    scalef = torch.rand((c,), generator=g, device=card) * 0.002 + 1e-4
+    biasf = torch.randn((c,), generator=g, device=card)
+    for delta, zp, qmax in ((0.07, 7.0, 15.0), (0.013, 128.0, 255.0)):
+        k = TDW.prepare_dw(wc, scalef, biasf, torch.tensor(delta, device=card),
+                           torch.tensor(zp, device=card), qmax)
+        for act in TDW.ACTS:
+            before = TDW.dw_conv3x3_int8.launches
+            got = TDW.dw_conv3x3_int8_prepared(x, k, stride, act)
+            torch.cuda.synchronize()
+            assert TDW.dw_conv3x3_int8.launches == before + 1
+            want = TDW.dw_plain_prepared(x, k, stride, act)
+            assert torch.equal(got, want), (delta, act)
+
+
+@pytest.mark.parametrize("b,h,oc,biased", [(5, 224, 64, True),
+                                           (3, 64, 16, False),
+                                           (2, 40, 32, True),
+                                           (1, 48, 48, False)])
+def test_stem_kernel_equals_plain_on_grid_images(card, b, h, oc, biased):
+    """On 1/8-grid images every value is bf16-exact (lo = 0) and every sum
+    exact in f32: the 2-pass bf16 kernel equals the plain f32 conv bit for
+    bit, at ragged batches and every OC instance; the kernel refuses OC
+    above 64 and H not a multiple of 4 rather than take the plain
+    version."""
+    from shiftedscalequantization_tpu_torch.ops.cuda import stem as TS
+    g = torch.Generator(device=card).manual_seed(4)
+    x = torch.round(torch.randn((b, h, h, 3), generator=g, device=card)
+                    * 8) / 8
+    w = torch.randint(-128, 128, (oc, 3, 7, 7), generator=g,
+                      device=card).float()
+    scale = torch.rand((oc,), generator=g, device=card) * 0.003 + 0.001
+    bias = torch.randn((oc,), generator=g, device=card) * 0.1
+    q = (0.02, 0.0, 255.0, 128.0) if biased else (0.1, 0.0, 15.0, 0.0)
+    k = TS.prepare_stem(w, scale, bias, *q)
+    before = TS.stem_fused.launches
+    got = TS.stem_fused_prepared(x, k)
+    torch.cuda.synchronize()
+    assert TS.stem_fused.launches == before + 1
+    assert torch.equal(got, TS.stem_plain_prepared(x, k))
+    with pytest.raises(ValueError, match="up to 64"):
+        TS.stem_fused(x, torch.zeros((80, 3, 7, 7), device=card),
+                      torch.ones(80, device=card),
+                      torch.zeros(80, device=card), *q)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        TS.stem_fused_prepared(x[:, :h - 2, :h - 2].contiguous(), k)
+    assert TS.stem_fused.launches == before + 1
+
+
 @pytest.mark.parametrize("b,h,ci,ce,co,expand,residual", [
     (4, 56, 24, 144, 24, True, True), (8, 7, 160, 960, 160, True, True),
     (2, 112, 32, 32, 16, False, False), (3, 13, 8, 48, 12, True, False)])

@@ -26,6 +26,7 @@ from shiftedscalequantization_tpu_torch.graph import BlockSpec, OpSpec, \
     UnitSpec
 from shiftedscalequantization_tpu_torch.models import zoo as TZ
 from shiftedscalequantization_tpu_torch.ops.cuda import packed as TP
+from shiftedscalequantization_tpu_torch.ops.cuda import stem as TS
 from shiftedscalequantization_tpu_torch.quantize import act_flags
 from shiftedscalequantization_tpu_torch.utils import jax_import as JI
 
@@ -189,6 +190,40 @@ def test_deploy_matches_sim(state, monkeypatch):
                                         state["jsteps"], jx))
     jrel = np.abs(jsim - jdep).mean() / (np.abs(jsim).mean() + 1e-9)
     assert abs(rel - jrel) <= 0.1 * jrel, (rel, jrel)
+
+
+def test_stem_launches_from_plan_constants(state, monkeypatch):
+    """The serving plan holds the fused stem's launch constants, built
+    once (f32 codes, their K-major bf16 layout, scale, bias, [1/delta, zp,
+    qmax, center_off] with 128 for the biased 8-bit site); a forward
+    builds none again and equals one on a plan without them."""
+    _set_env(monkeypatch, SSQ_STEM_KERNEL="1", SSQ_PACKED="1",
+             SSQ_STEM_1PASS="0")
+    plan = TD.make_deploy_plan(state["gt"], state["td"], state["tsteps"],
+                               input_hw=(HW, HW))
+    stem = plan["__fused_stem__"]
+    assert set(plan["__kernel_consts__"]) == {stem}
+    k, d = plan["__kernel_consts__"][stem], state["td"][stem]
+    codes = d.w_int if d.w_int is not None else d.w_fp  # 8-bit: f32 codes
+    assert torch.equal(k.w, codes.float())
+    assert torch.equal(TS.unpack_stem_weights(k.w_k), k.w)
+    delta, zp, n_bits = state["tsteps"][stem]
+    np.testing.assert_array_equal(k.qp.numpy(), np.array(
+        [np.float32(1) / np.float32(float(delta)), float(zp),
+         2.0 ** n_bits - 1, 128.0 if stem in plan["__biased_sites__"]
+         else float(zp)], np.float32))
+    x = torch.as_tensor(state["x"])
+    bare = {key: v for key, v in plan.items() if key != "__kernel_consts__"}
+    want = TD.deploy_forward(state["gt"], state["td"], state["tsteps"], x,
+                             plan=bare, device="cpu")
+
+    def rebuilt(*args, **kwargs):
+        raise AssertionError("stem constants built during a forward")
+
+    monkeypatch.setattr(TD, "prepare_stem", rebuilt)
+    got = TD.deploy_forward(state["gt"], state["td"], state["tsteps"], x,
+                            plan=plan, device="cpu")
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("kind", TD.UNPORTED_KINDS)

@@ -298,6 +298,43 @@ def test_deploy_forward_matches_jax(state, monkeypatch, env):
     np.testing.assert_array_equal(got.numpy().argmax(-1), want.argmax(-1))
 
 
+def test_dw_units_launch_from_plan_constants(state, monkeypatch):
+    """The serving plan holds each dw_int8 unit's launch constants, built
+    once: the tap words unpack to the unit's codes, scalef is scale *
+    delta_in, qp is [1/delta_out, zp_out, qmax] (one f32 division). A
+    forward builds none of them again and gives the JAX deploy logits."""
+    _set_env(monkeypatch, DW_PACKED)
+    pj, pt = _plans(state)
+    consts = pt["__kernel_consts__"]
+    dw_units = sorted(n for n, (k, _) in _kinds(pt).items()
+                      if k == "dw_int8")
+    assert len(dw_units) == 16 and sorted(consts) == dw_units
+    for name in dw_units:
+        d, k = state["td"][name], consts[name]
+        delta_in = state["tsteps"][pt[name][1]][0]
+        delta_o, zp_o, n_bits = state["tsteps"][name]
+        assert torch.equal(TDW.unpack_taps(k.w_taps),
+                           d.w_int.reshape(-1, 3, 3).to(torch.int32))
+        assert torch.equal(k.scalef, (d.scale * delta_in).float())
+        np.testing.assert_array_equal(k.qp.numpy(), np.array(
+            [np.float32(1) / np.float32(float(delta_o)), float(zp_o),
+             2.0 ** n_bits - 1], np.float32))
+
+    def rebuilt(*args, **kwargs):
+        raise AssertionError("dw constants built during a forward")
+
+    monkeypatch.setattr(TD, "prepare_dw", rebuilt)
+    key = tuple(sorted(DW_PACKED.items()))
+    if key not in state["jax_deploy"]:
+        state["jax_deploy"][key] = np.asarray(JD.deploy_forward(
+            state["g"], state["jd"], state["jsteps"],
+            jnp.asarray(state["x"]), plan=pj))
+    got = TD.deploy_forward(state["gt"], state["td"], state["tsteps"],
+                            torch.as_tensor(state["x"]), plan=pt,
+                            device="cpu")
+    assert _rel_mse(got.numpy(), state["jax_deploy"][key]) <= 1e-8
+
+
 def test_depthwise_integer_route_is_exact():
     """The plain depthwise accumulate that serves bf16_codes and int8
     units equals a grouped float64 conv of the centered codes (exact),

@@ -43,9 +43,15 @@ non-zero exit and no result line:
    stride-2, C % 16 != 0 shape, timed by CUDA-graph replay (eager beside)
    beside cuDNN's bf16 depthwise conv; the packed kernel as in 4 at each
    distinct shape of the plan's 34 packed units;
-8. mbconv kernel: the fused inverted-residual kernel against its plain
-   version, bit-exact, at three MobileNetV2 block shapes (it has no
-   caller on the serving path), and timed;
+8. mbconv kernel: the fused inverted-residual kernel (it has no caller on
+   the serving path) against its plain version, torch.equal, at each of
+   MobileNetV2's 8 stride-1 block shapes at batch 256 (13 blocks), with
+   4-bit codes and over the whole int8 range with 8-bit stage clips;
+   timed by CUDA-graph replay on constants prepared once (eager beside),
+   beside its bound, its CUDA-core floor (the design's instructions per
+   expanded element over SMs x 128 lanes x the SM clock), cuDNN's bf16
+   convs of the block alone, and the same run's packed and dw times of
+   the units the served block runs;
 9. mnv2 serving: one deploy forward at batch 256 with the counters reset
    just before it (16 dw and 34 packed launches, no int8_conv, UNFUSED
    requants left), its time, and the time of the port's bf16 float
@@ -672,54 +678,179 @@ def check_dw(torch, gen, dw, shapes):
     return rows
 
 
-# (name, H, CI, CE, CO, expand, residual) at batch 256
-MBCONV_SHAPES = [("features.3", 56, 24, 144, 24, True, True),
-                 ("features.15", 7, 160, 960, 160, True, True),
-                 ("features.1", 112, 32, 32, 16, False, False)]
+# MobileNetV2's stride-1 inverted-residual blocks at 224x224, batch 256:
+# (name, H, CI, CE, CO, expand, residual, blocks of that shape), 13 blocks
+MBCONV_SHAPES = [
+    ("features.1", 112, 32, 32, 16, False, False, 1),
+    ("features.3", 56, 24, 144, 24, True, True, 1),
+    ("features.5-6", 28, 32, 192, 32, True, True, 2),
+    ("features.8-10", 14, 64, 384, 64, True, True, 3),
+    ("features.11", 14, 64, 384, 96, True, False, 1),
+    ("features.12-13", 14, 96, 576, 96, True, True, 2),
+    ("features.15-16", 7, 160, 960, 160, True, True, 2),
+    ("features.17", 7, 160, 960, 320, True, False, 1)]
+# the three shapes of the kernel's first timings, one launch each
+MBCONV_3SHAPES = ("features.1", "features.3", "features.15-16")
+# a design estimate, counted from the source and not measured on the card:
+# the kernel's instructions per expanded element (B*H*W*CE) on the CUDA
+# cores, the dw 12.25 (a 4-channel word: 3 shared loads, 6 byte
+# permutes and 12 dp4a per q1 row, which feeds 3 output rows; then the
+# epilogue, 6 float operations a code and 3 permutes a word, and one
+# store), the expand's epilogue 6.875 and, per 32 input channels, an
+# ldmatrix, 4 fragment loads and 4 mma a 16 x 32 tile (0.5625)
+MBCONV_DW_INSTR = 12.25
+MBCONV_EXPAND_INSTR = 6.875
+MBCONV_KSTEP_INSTR = 0.5625
 
 
-def check_mbconv(torch, gen, mbconv):
-    """mbconv kernel vs its plain version, bit-exact, at three MobileNetV2
-    block shapes at batch 256: 4-bit block codes, W2 codes, 4-bit stage
-    clips."""
+def cuda_core_rate(torch):
+    """Issued thread-instructions a second: SMs x 128 lanes x the card's
+    maximum SM clock (nvidia-smi)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 128 * mhz * 1e6, sms, mhz
+
+
+def _mbconv_args(torch, gen, h, ci, ce, co, full):
+    """Seeded block inputs at batch 256: 4-bit block codes, W2 codes and
+    4-bit stage clips; or (full) codes over the whole int8 range, 8-bit
+    stage clips (hi_e = hi_d = 255) and an 8-bit block grid, with rows
+    scaled so that every stage spans its range."""
     dev = DEVICE
-    rows = []
 
-    def codes(*shape):
-        return torch.randint(-2, 2, shape, generator=gen, device=dev,
+    def codes(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
                              dtype=torch.int8)
 
-    def affine_rows(n, lo, hi):
+    def rows(n, lo, hi, mean, spread):
         return torch.stack([torch.rand((n,), generator=gen, device=dev)
                             * (hi - lo) + lo,
                             torch.randn((n,), generator=gen, device=dev)
-                            + 0.5]).contiguous()
+                            * spread + mean]).contiguous()
 
-    for name, h, ci, ce, co, expand, residual in MBCONV_SHAPES:
-        x = torch.randint(-8, 8, (BATCH, h, h, ci), generator=gen,
-                          device=dev, dtype=torch.int8)
-        args = (x, codes(ci, ce), affine_rows(ce, 0.05, 0.3), codes(9, ce),
-                affine_rows(ce, 0.05, 0.3), codes(ce, co),
-                affine_rows(co, 0.01, 0.1),
-                torch.tensor([15.0, 15.0, 0.7, -8.0, 7.0, 0.0], device=dev))
-        kw = dict(has_expand=expand, has_residual=residual)
-        got = mbconv.mbconv_fused(*args, **kw)
-        want = mbconv.mbconv_fused_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = float((got.int() - want.int()).abs().max())
-        if err != 0:
-            raise AssertionError(f"mbconv {name}: max abs err {err} codes")
-        ms = time_cuda(lambda: mbconv.mbconv_fused(*args, **kw), iters=10)
-        plain_ms = time_cuda(lambda: mbconv.mbconv_fused_plain(*args, **kw),
-                             iters=5)
-        pix = BATCH * h * h
-        n_ops = 2 * pix * ((ci * ce if expand else 0) + 9 * ce + ce * co)
-        b_ms, b_by = bound_ms(pix * (ci + co), n_ops, INT8_OPS)
-        print(f"  mbconv {name} {h}x{h} {ci}/{ce}/{co}: {ms:.4f} ms (bound "
-              f"{b_ms:.4f} ms by {b_by}, plain {plain_ms:.4f}), bit-exact",
-              flush=True)
-        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, err=err))
+    if full:
+        k = (-128, 128)
+        return (codes(*k, BATCH, h, h, ci), codes(*k, ci, ce),
+                rows(ce, *(128 / (ci ** 0.5 * 5470) * f for f in (.5, 1.5)),
+                     100.0, 30.0),
+                codes(*k, 9, ce),
+                rows(ce, *(128 / 22000 * f for f in (.5, 1.5)), 100.0, 30.0),
+                codes(*k, ce, co),
+                rows(co, *(128 / (ce ** 0.5 * 9000) * f for f in (.5, 1.5)),
+                     0.0, 10.0),
+                torch.tensor([255.0, 255.0, 0.7, -128.0, 127.0, 0.0],
+                             device=dev))
+    return (codes(-8, 8, BATCH, h, h, ci), codes(-2, 2, ci, ce),
+            rows(ce, 0.05, 0.3, 0.5, 1.0), codes(-2, 2, 9, ce),
+            rows(ce, 0.05, 0.3, 0.5, 1.0), codes(-2, 2, ce, co),
+            rows(co, 0.01, 0.1, 0.5, 1.0),
+            torch.tensor([15.0, 15.0, 0.7, -8.0, 7.0, 0.0], device=dev))
+
+
+def block_units_ms(h, ci, ce, co, expand, residual, pk_rows, dw_rows):
+    """The same run's times of the units a served MobileNetV2 block runs
+    instead (the expand and project through packed, each in its role's
+    mode, the dw through dw): their sum and the units not among the rows
+    (features.1's dw unit is bf16_codes)."""
+    pk = {r["shape"]: r for r in pk_rows}
+    dw = {r["shape"]: r for r in dw_rows}
+    units = [("packed", (BATCH, h, h, ci, 1, ce), "site"),
+             ("dw", (h, h, ce, 1), None),
+             ("packed", (BATCH, h, h, ce, 1, co),
+              "block codes" if residual else "block none")]
+    if not expand:
+        units = units[1:]
+    total, missing = 0.0, []
+    for kind, shape, role in units:
+        row = (pk if kind == "packed" else dw).get(tuple(shape))
+        t = None if row is None else (row["ms"] if role is None
+                                      else row["ms"].get(role))
+        if t is None:
+            missing.append(f"{kind} {shape}")
+        else:
+            total += t
+    return total, missing
+
+
+def check_mbconv(torch, gen, mbconv, pk_rows, dw_rows):
+    """mbconv kernel vs its plain version, torch.equal, at MobileNetV2's 8
+    stride-1 block shapes at batch 256 (13 blocks), 4-bit and full-range
+    8-bit (hi_e = hi_d = 255); launched on constants prepared once, timed
+    by CUDA-graph replay with the eager time beside, beside the bound, the
+    CUDA-core floor, cuDNN's bf16 convs of the block alone (expand 1x1,
+    depthwise 3x3, project 1x1: three calls, two without an expand) and
+    the same run's packed and dw rows of the block's units."""
+    import torch.nn.functional as F
+    rate, sms, mhz = cuda_core_rate(torch)
+    print(f"  CUDA-core floor (a design estimate): {sms} SMs x 128 "
+          f"lanes x {mhz:.0f} MHz = "
+          f"{rate / 1e12:.2f} T instructions/s", flush=True)
+    rows = []
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, h, ci, ce, co, expand, residual, count in MBCONV_SHAPES:
+            kw = dict(has_expand=expand, has_residual=residual)
+            for full in (True, False):
+                args = _mbconv_args(torch, gen, h, ci, ce, co, full)
+                k = mbconv.prepare_mbconv(*args[1:], **kw)
+                got = mbconv.mbconv_fused_prepared(args[0], k)
+                want = mbconv.mbconv_fused_plain(*args, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    n = int((got != want).sum())
+                    raise AssertionError(f"mbconv {name} (full range "
+                                         f"{full}): {n} codes differ")
+            # timed on the 4-bit case
+            x = args[0]
+            ms = time_graph(lambda: mbconv.mbconv_fused_prepared(x, k))
+            eager_ms = time_cuda(lambda: mbconv.mbconv_fused_prepared(x, k))
+            plain_ms = time_cuda(lambda: mbconv.mbconv_fused_plain(
+                *args, **kw), iters=2, warmup=1)
+            xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)    # channels_last
+            we = args[1].T.reshape(ce, ci, 1, 1).to(torch.bfloat16) \
+                .contiguous(memory_format=torch.channels_last)
+            wd = args[3].T.reshape(ce, 1, 3, 3).to(torch.bfloat16) \
+                .contiguous(memory_format=torch.channels_last)
+            wp = args[5].T.reshape(co, ce, 1, 1).to(torch.bfloat16) \
+                .contiguous(memory_format=torch.channels_last)
+
+            def convs():
+                y = F.conv2d(xb, we) if expand else xb
+                return F.conv2d(F.conv2d(y, wd, None, 1, 1, 1, ce), wp)
+
+            conv_ms = time_graph(convs)
+            pix = BATCH * h * h
+            n_ops = 2 * pix * ((ci * ce if expand else 0) + 9 * ce + ce * co)
+            b_ms, b_by = bound_ms(pix * (ci + co), n_ops, INT8_OPS)
+            instr = MBCONV_DW_INSTR + (
+                MBCONV_EXPAND_INSTR + MBCONV_KSTEP_INSTR * -(-ci // 32)
+                if expand else 0.0)
+            floor_ms = instr * pix * ce / rate * 1e3
+            units_ms, missing = block_units_ms(h, ci, ce, co, expand,
+                                               residual, pk_rows, dw_rows)
+            print(f"  mbconv {name} (x{count}) {h}x{h} {ci}/{ce}/{co}: "
+                  f"{ms:.4f} ms graph, {eager_ms:.4f} eager (bound "
+                  f"{b_ms:.4f} ms by {b_by}; CUDA-core floor, a design estimate "
+                  f"from counted source lines, {floor_ms:.4f} at {instr:g} "
+                  f"instructions per expanded element; plain "
+                  f"{plain_ms:.4f}, cuDNN bf16 convs alone "
+                  f"({3 if expand else 2} calls) {conv_ms:.4f}; the served "
+                  f"units packed + dw {units_ms:.4f}"
+                  + (f", without {missing}" if missing else "")
+                  + "), bit-exact 4-bit and full range", flush=True)
+            rows.append(dict(name=name, shape=(h, ci, ce, co, expand,
+                                               residual),
+                             count=count, ms=ms, eager_ms=eager_ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             floor_ms=floor_ms, instr_per_element=instr,
+                             convs_ms=conv_ms, units_ms=units_ms,
+                             units_missing=missing, err=0.0))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
     return rows
 
 
@@ -1468,7 +1599,14 @@ def main():
     phase("packed kernel", t0)
 
     t0 = time.perf_counter()
-    mb_rows = check_mbconv(torch, gen, mbconv)
+    mb_rows = check_mbconv(torch, gen, mbconv, mpk_rows, dw_rows)
+    if sum(r["count"] for r in mb_rows) != 13:
+        raise AssertionError(f"mbconv shapes {mb_rows}")
+    mb3 = sum(r["ms"] for r in mb_rows if r["name"] in MBCONV_3SHAPES)
+    print(f"  mbconv 13 blocks {sum(r['ms'] * r['count'] for r in mb_rows):.4f}"
+          f" ms (features.1 + .3 + .15 {mb3:.4f}); the served units packed"
+          f" + dw {sum(r['units_ms'] * r['count'] for r in mb_rows):.4f}",
+          flush=True)
     phase("mbconv kernel", t0)
 
     t0 = time.perf_counter()
@@ -1699,16 +1837,25 @@ def main():
          "bound_ms": per_forward(dw_rows, "bound_ms"),
          "bound_by": max(dw_rows, key=lambda r: r["bound_ms"])["bound_by"],
          "library_ms": per_forward(dw_rows, "conv_alone_ms")},
+        # mbconv has no caller in either package: its times are those of
+        # MobileNetV2's 13 stride-1 blocks, and ms_3shapes that of
+        # MBCONV_3SHAPES, one launch each; its library yardstick is
+        # cuDNN's bf16 convs of each block (three calls, two for
+        # features.1), and units_ms the packed and dw units served today
         {"name": "mbconv_fused", "route": "cuda",
          "source": src + "mbconv_fused.cu",
          "replaces": "shiftedscalequantization_tpu/ops/pallas/mbconv.py:38",
          "launches": mlaunches["mbconv_fused"],
          "max_abs_err": max(r["err"] for r in mb_rows),
          "ms": per_forward(mb_rows, "ms"),
+         "ms_3shapes": sum(r["ms"] for r in mb_rows
+                           if r["name"] in MBCONV_3SHAPES),
+         "ms_eager": per_forward(mb_rows, "eager_ms"),
          "plain_ms": per_forward(mb_rows, "plain_ms"),
          "bound_ms": per_forward(mb_rows, "bound_ms"),
          "bound_by": max(mb_rows, key=lambda r: r["bound_ms"])["bound_by"],
-         "library_ms": None},
+         "units_ms": per_forward(mb_rows, "units_ms"),
+         "library_ms": per_forward(mb_rows, "convs_ms")},
         # quant_matmul has no deploy caller in either package: its times
         # are those of the three ResNet-18 downsample GEMM shapes
         {"name": "quant_matmul", "route": "cuda",

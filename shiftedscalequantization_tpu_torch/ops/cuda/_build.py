@@ -44,9 +44,9 @@ SIGNATURES = {
     # x, w (C, 3) tap words, scalef, biasf, qp, out, B, H, W, C, stride,
     # act, stream
     "ssq_dw_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, we, ae, wd, ad, wp, ap, qp, out, B, H, W, CI, CE, CO, has_expand,
-    # has_residual, stream
-    "ssq_mbconv_fused": [_P] * 9 + [_I] * 8 + [_P],
+    # x, chunks (prepare_mbconv records), ap, qp, out, B, H, W, CI, CE, CO,
+    # has_expand, has_residual, R, cls, G (launch_plan), stream
+    "ssq_mbconv_fused": [_P] * 5 + [_I] * 11 + [_P],
     # x, w (K, N), scale, bias, qp, out, M, K, N, relu, stream
     "ssq_quant_matmul": [_P] * 6 + [_I] * 4 + [_P],
     # codes, w (S, N, K), table, acc_offset, delta, out, S, B, H, W, C, KH,

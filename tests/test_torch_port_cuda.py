@@ -273,38 +273,88 @@ def test_stem_kernel_equals_plain_on_grid_images(card, b, h, oc, biased):
     assert TS.stem_fused.launches == before + 1
 
 
-@pytest.mark.parametrize("b,h,ci,ce,co,expand,residual", [
-    (4, 56, 24, 144, 24, True, True), (8, 7, 160, 960, 160, True, True),
-    (2, 112, 32, 32, 16, False, False), (3, 13, 8, 48, 12, True, False)])
+@pytest.mark.parametrize("b,h,ci,ce,co,expand,residual,full", [
+    # MobileNetV2's 8 stride-1 block shapes at small batch
+    (2, 112, 32, 32, 16, False, False, False),
+    (4, 56, 24, 144, 24, True, True, False),
+    (4, 28, 32, 192, 32, True, True, False),
+    (8, 14, 64, 384, 64, True, True, False),
+    (8, 14, 64, 384, 96, True, False, False),
+    (8, 14, 96, 576, 96, True, True, False),
+    (8, 7, 160, 960, 160, True, True, False),
+    (8, 7, 160, 960, 320, True, False, False),
+    # ragged: H = 13, CI = 20, CE not a multiple of the 32-channel chunk
+    (3, 13, 20, 40, 20, True, True, False),
+    (3, 13, 8, 48, 12, True, False, False),
+    (3, 7, 16, 16, 16, False, True, False),
+    # the whole int8 range with 8-bit stage clips (hi_e = hi_d = 255)
+    (4, 56, 24, 144, 24, True, True, True),
+    (8, 7, 160, 960, 320, True, False, True),
+    (2, 112, 32, 32, 16, False, False, True),
+    (3, 13, 20, 40, 20, True, True, True)])
 def test_mbconv_kernel_matches_plain(card, b, h, ci, ce, co, expand,
-                                     residual):
+                                     residual, full):
     """Integer sums exact on both sides, epilogues rounded step by step:
-    bit-exact at MobileNetV2 block shapes and a ragged one."""
+    bit-exact at MobileNetV2 block shapes, ragged ones and over the whole
+    int8 range; one launch each, on constants prepared once."""
     from shiftedscalequantization_tpu_torch.ops.cuda import mbconv as TMB
     g = torch.Generator(device=card).manual_seed(3)
+    lim = (-128, 128) if full else (-2, 2)
 
     def codes(*shape):
-        return torch.randint(-2, 2, shape, generator=g, device=card,
+        return torch.randint(*lim, shape, generator=g, device=card,
                              dtype=torch.int8)
 
-    def rows(n, lo, hi):
+    def rows(n, lo, hi, mean=0.5, spread=1.0):
         return torch.stack([torch.rand((n,), generator=g, device=card)
                             * (hi - lo) + lo,
                             torch.randn((n,), generator=g, device=card)
-                            + 0.5]).contiguous()
+                            * spread + mean]).contiguous()
 
-    x = torch.randint(-8, 8, (b, h, h, ci), generator=g, device=card,
-                      dtype=torch.int8)
-    args = (x, codes(ci, ce), rows(ce, 0.05, 0.3), codes(9, ce),
-            rows(ce, 0.05, 0.3), codes(ce, co), rows(co, 0.01, 0.1),
-            torch.tensor([15.0, 15.0, 0.7, -8.0, 7.0, 0.0], device=card))
+    if full:
+        x = torch.randint(-128, 128, (b, h, h, ci), generator=g,
+                          device=card, dtype=torch.int8)
+        se, sd, sp = (128 / (ci ** 0.5 * 5470), 128 / 22000,
+                      128 / (ce ** 0.5 * 9000))
+        args = (x, codes(ci, ce), rows(ce, se / 2, 1.5 * se, 100, 30),
+                codes(9, ce), rows(ce, sd / 2, 1.5 * sd, 100, 30),
+                codes(ce, co), rows(co, sp / 2, 1.5 * sp, 0, 10),
+                torch.tensor([255.0, 255.0, 0.7, -128.0, 127.0, 0.0],
+                             device=card))
+    else:
+        x = torch.randint(-8, 8, (b, h, h, ci), generator=g, device=card,
+                          dtype=torch.int8)
+        args = (x, codes(ci, ce), rows(ce, 0.05, 0.3), codes(9, ce),
+                rows(ce, 0.05, 0.3), codes(ce, co), rows(co, 0.01, 0.1),
+                torch.tensor([15.0, 15.0, 0.7, -8.0, 7.0, 0.0],
+                             device=card))
+    kw = dict(has_expand=expand, has_residual=residual)
+    k = TMB.prepare_mbconv(*args[1:], **kw)
     before = TMB.mbconv_fused.launches
-    got = TMB.mbconv_fused(*args, has_expand=expand, has_residual=residual)
+    got = TMB.mbconv_fused_prepared(x, k)
     torch.cuda.synchronize()
     assert TMB.mbconv_fused.launches == before + 1
-    want = TMB.mbconv_fused_plain(*args, has_expand=expand,
-                                  has_residual=residual)
+    want = TMB.mbconv_fused_plain(*args, **kw)
     assert torch.equal(got, want)
+    assert torch.equal(TMB.mbconv_fused(*args, **kw), want)
+    assert TMB.mbconv_fused.launches == before + 2
+
+
+def test_mbconv_kernel_refuses_before_launch(card):
+    """A shape the kernel cannot take (CI not a multiple of 4) raises
+    ValueError in the wrapper, and nothing is launched."""
+    from shiftedscalequantization_tpu_torch.ops.cuda import mbconv as TMB
+    x = torch.zeros((1, 8, 8, 22), dtype=torch.int8, device=card)
+    we = torch.zeros((22, 44), dtype=torch.int8, device=card)
+    wd = torch.zeros((9, 44), dtype=torch.int8, device=card)
+    wp = torch.zeros((44, 22), dtype=torch.int8, device=card)
+    r44 = torch.zeros((2, 44), device=card)
+    before = TMB.mbconv_fused.launches
+    with pytest.raises(ValueError, match="multiples of 4"):
+        TMB.mbconv_fused(x, we, r44, wd, r44, wp, torch.zeros((2, 22),
+                                                              device=card),
+                         torch.zeros(6, device=card))
+    assert TMB.mbconv_fused.launches == before
 
 
 def test_mobilenetv2_deploy_on_card_runs_dw_kernel(card, monkeypatch):

@@ -90,7 +90,9 @@ def _mbconv_inputs(rng, ci, ce, co):
 def test_mbconv_plain_matches_pallas(h, w, ci, ce, co, expand, residual):
     """Bit-exact against mbconv_fused(interpret=True) with and without the
     expand and the residual; 4-bit block grid [-8, 7], 4-bit stage clips,
-    W2 codes."""
+    W2 codes. Both the wrapper (on CPU tensors, the kernel's order on
+    prepared constants) and the plain version every card check is held
+    to."""
     rng = np.random.default_rng(h * 1000 + ce)
     x = rng.integers(-8, 8, (2, h, w, ci)).astype(np.int8)
     we, ae, wd, ad, wp, ap = _mbconv_inputs(rng, ci, ce, co)
@@ -107,6 +109,10 @@ def test_mbconv_plain_matches_pallas(h, w, ci, ce, co, expand, residual):
     assert TMB.mbconv_fused.launches == before
     assert got.dtype == torch.int8 and tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
+    plain = TMB.mbconv_fused_plain(
+        *(torch.as_tensor(a) for a in (x, we, ae, wd, ad, wp, ap, qp)),
+        has_expand=expand, has_residual=residual)
+    np.testing.assert_array_equal(plain.numpy(), want)
 
 
 def test_mbconv_wrapper_checks_channels():

@@ -110,7 +110,29 @@ non-zero exit and no result line:
    int8_conv, 1 stem, UNFUSED requants left); deploy vs sim rel-MSE
    <= 1e-2, no NaN, its top-1
    agreement and margins as in 14; card vs CPU deploy on 8 grid images
-   rel-MSE <= 1e-8, same top-1.
+   rel-MSE <= 1e-8, same top-1;
+20. cli runs: the port's CLI (``cli.main``, in this process) three times
+   on ImageNet ResNet-18 W2A4 at full width (224x224, 1000 classes,
+   seeded synthetic data: 512 train and 256 test images, random init),
+   with the checkpoints, logs and golden logits in a temporary directory
+   (CLI_RUNS): --mode fused (200 steps a target, 256 calibration rows,
+   the per-target validation on), --mode brecq (128 rows, 200 steps, then
+   the act-delta phase at 200 steps on every target) and --mode two_phase
+   (128 rows, 100 + 200 steps, targets {1/2, 1}); per run its wall
+   seconds, the
+   CLI's own lines, the fake_quant act and weight launches counted during
+   the run (counters reset just before it), the hard losses and the final
+   accuracy; each run must reconstruct all 9 targets with finite hard
+   losses and finite final logits, launch fake_quant (act and weight),
+   leave every act delta positive and its checkpoint loadable; brecq must
+   print the act-phase drift line. Then the act-delta phase of
+   ACT_PARITY_TARGET is run again from the state and caches the brecq
+   run gave it, ACT_PARITY_ITERS steps on the card and on the CPU (the
+   plain versions) with the same CPU-generator rows: rec_trace and the
+   learned deltas within PARITY_RTOL;
+21. cli serving: the fused run's final checkpoint loaded onto the card
+   and served through build_deploy_params / deploy_forward at batch 256
+   (the CLI's test images): deploy vs sim logit rel-MSE <= 1e-2, no NaN.
 
 It imports nothing of JAX. Standard output ends with a JSON line of
 details, a JSON line of the kernels, the nvidia-smi line, the total
@@ -147,6 +169,8 @@ PARITY_ROWS = 64                 # card vs CPU reconstruction of layer4.1
 PARITY_ITERS = 16
 PARITY_RTOL = 1e-3               # rec_trace, card vs CPU
 PARITY_FLIPS = 0.005             # hardened codes, card vs CPU
+ACT_PARITY_TARGET = "model.layer1.0"   # card vs CPU act-delta phase
+ACT_PARITY_ITERS = 16
 GRAD_RTOL = 1e-4                 # delta / zp gradients: sums in two orders
 BATCH = 256
 HW = 224
@@ -1465,6 +1489,234 @@ def recon_phases(torch, gen):
                 rc_rel=rc_rel, roverall=roverall)
 
 
+CLI_COMMON = ["--arch", "resnet18", "--dataset", "imagenet",
+              "--synthetic_data", "true", "--n_bits_w", "2", "--n_bits_a", "4"]
+# the three CLI runs of phase 20 (ImageNet ResNet-18 W2A4 at full width,
+# synthetic data: 512 train and 256 test images)
+CLI_RUNS = [
+    ("fused", ["--mode", "fused", "--iters_w", "200", "--num_samples", "256",
+               "--batch_size", "64", "--skip_test", "false"]),
+    ("brecq", ["--mode", "brecq", "--iters_w", "200", "--iters_a", "200",
+               "--num_samples", "128", "--batch_size", "64",
+               "--skip_test", "true"]),
+    ("two_phase", ["--mode", "two_phase", "--iters_w", "100",
+                   "--num_samples", "128", "--shift_targets", "0.5,1.0",
+                   "--skip_test", "true"]),
+]
+
+
+class _Tee:
+    """stdout that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def act_delta_parity(torch, Q, engine, rec):
+    """The act-delta phase of ACT_PARITY_TARGET from what the brecq run's
+    pipeline gave it (``rec``), ACT_PARITY_ITERS steps on the card and on
+    the CPU with the same rows. Returns (max rel diff of rec_trace, of
+    the learned deltas, CPU seconds)."""
+    from shiftedscalequantization_tpu_torch.graph import find_node, \
+        node_unit_names
+    s = dataclasses.replace(rec["settings"], iters=ACT_PARITY_ITERS)
+    args = (rec["graph"], rec["params"], rec["qstate"], ACT_PARITY_TARGET)
+    qs_card, m_card = engine.reconstruct_act_delta(
+        *args, rec["ci"], rec["co"], s, seed=rec["seed"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    qs_cpu, m_cpu = engine.reconstruct_act_delta(
+        rec["graph"], Q.to_device(rec["params"], "cpu"),
+        Q.to_device(rec["qstate"], "cpu"), ACT_PARITY_TARGET,
+        rec["ci"].cpu(), rec["co"].cpu(), s, seed=rec["seed"])
+    cpu_s = time.perf_counter() - t
+
+    def rel(a, b):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        return float(((a - b).abs() / b.abs()).max())
+
+    units = node_unit_names(find_node(rec["graph"], ACT_PARITY_TARGET))
+
+    def deltas(qs):
+        out = [qs[u].aq.delta for u in units if qs[u].aq is not None]
+        if qs.get(ACT_PARITY_TARGET) is not None:
+            out.append(qs[ACT_PARITY_TARGET].delta)
+        return out
+
+    trace = rel(m_card["rec_trace"], m_cpu["rec_trace"])
+    learned = max(rel(a, b) for a, b in zip(deltas(qs_card),
+                                             deltas(qs_cpu)))
+    return trace, learned, cpu_s
+
+
+def cli_phases(torch):
+    """Phases 20-21: the port's CLI driven in-process (cli.main) for the
+    three runs of CLI_RUNS, then run 1's final checkpoint served. Returns
+    what the result lines report."""
+    import contextlib
+    import tempfile
+    import numpy as np
+    from shiftedscalequantization_tpu_torch import cli, deploy
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.graph import Flags, forward
+    from shiftedscalequantization_tpu_torch.recon import engine
+    from shiftedscalequantization_tpu_torch.recon import pipeline
+    from shiftedscalequantization_tpu_torch.utils import checkpoint as ck
+    from shiftedscalequantization_tpu_torch.utils.config import load_args
+
+    def sync():
+        if DEVICE != "cpu":
+            torch.cuda.synchronize()
+
+    # what the brecq run's pipeline gives ACT_PARITY_TARGET's act phase
+    act_rec = {}
+    act_phase = pipeline.reconstruct_act_delta
+
+    def record_act_phase(graph, params, qstate, name, ci, co, s, **kw):
+        if name == ACT_PARITY_TARGET:
+            act_rec.update(graph=graph, params=params, qstate=qstate, ci=ci,
+                           co=co, settings=s, seed=kw["seed"])
+        return act_phase(graph, params, qstate, name, ci, co, s, **kw)
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    runs = {}
+    for name, flags in CLI_RUNS:
+        argv = CLI_COMMON + flags + [
+            "--checkpoint_dir", os.path.join(tmp.name, name),
+            "--log_path", os.path.join(tmp.name, f"{name}.log"),
+            "--golden_dir", os.path.join(tmp.name, f"{name}_golden")]
+        print(f"  cli run {name}: python -m "
+              f"shiftedscalequantization_tpu_torch.cli {' '.join(argv)}",
+              flush=True)
+        tee = _Tee(sys.stdout)
+        sync()
+        reset_counts()
+        t = time.perf_counter()
+        pipeline.reconstruct_act_delta = record_act_phase
+        try:
+            with contextlib.redirect_stdout(tee):
+                final = cli.main(argv)
+        finally:
+            pipeline.reconstruct_act_delta = act_phase
+        sync()
+        wall = time.perf_counter() - t
+        launches = counts()
+        out = "".join(tee.parts)
+        hard = {}
+        for line in out.splitlines():
+            if line.startswith("Reconstructed "):
+                target, rest = line[len("Reconstructed "):].split(": ", 1)
+                hard[target] = float(rest.split(" -> hard ")[1].split()[0])
+        logits = np.load(os.path.join(tmp.name, f"{name}_golden",
+                                      "result_2bit.npz"))["logits"]
+        drift = [ln for ln in out.splitlines()
+                 if ln.startswith("act-phase delta drift")]
+        qs, done = ck.load_qstate(
+            os.path.join(tmp.name, name, "QNN_W2_A4"), device=DEVICE)
+        deltas = cli._act_deltas(qs)
+        runs[name] = dict(
+            wall_s=wall, final=final, hard_loss=hard,
+            fake_quant_act=launches["fake_quant_act"],
+            fake_quant_weight=launches["fake_quant_weight"],
+            logits_shape=list(logits.shape),
+            logits_finite=bool(np.isfinite(logits).all()),
+            drift=drift[0] if drift else None, done=len(done),
+            min_act_delta=min(deltas.values()))
+        print(f"  cli run {name}: {wall:.2f} s; final {final}; fake_quant "
+              f"launches act {launches['fake_quant_act']}, weight "
+              f"{launches['fake_quant_weight']}; hard losses "
+              + ", ".join(f"{k.removeprefix('model.')} {v:.6g}"
+                          for k, v in hard.items())
+              + f"; final logits {tuple(logits.shape)} finite "
+              f"{runs[name]['logits_finite']}; act drift "
+              f"{runs[name]['drift']}; smallest act delta "
+              f"{runs[name]['min_act_delta']:.6g}", flush=True)
+        if len(hard) != 9 or len(done) != 9:
+            raise AssertionError(f"cli {name}: targets {list(hard)}, done "
+                                 f"{len(done)}")
+        if not all(math.isfinite(v) for v in hard.values()) \
+                or not runs[name]["logits_finite"] \
+                or logits.shape[0] != BATCH:
+            raise AssertionError(f"cli {name}: a hard loss or final logit "
+                                 f"is not finite ({hard}, {logits.shape})")
+        if not (launches["fake_quant_act"] > 0
+                and launches["fake_quant_weight"] > 0):
+            raise AssertionError(f"cli {name}: fake_quant not launched "
+                                 f"{launches}")
+        if min(deltas.values()) <= 0 or (drift and "NON-POSITIVE"
+                                         in drift[0]):
+            raise AssertionError(f"cli {name}: a non-positive act delta")
+        if name == "brecq" and not drift:
+            raise AssertionError("cli brecq: no act-delta phase ran")
+    if not act_rec:
+        raise AssertionError(f"no act-delta phase of {ACT_PARITY_TARGET}")
+    act_trace, act_deltas, act_cpu_s = act_delta_parity(torch, Q, engine,
+                                                        act_rec)
+    act_rows = act_rec["ci"].shape[0]
+    act_rec.clear()
+    print(f"  {ACT_PARITY_TARGET} act-delta phase from the brecq run's "
+          f"state and {act_rows}-row caches, {ACT_PARITY_ITERS} steps, card "
+          f"vs CPU ({act_cpu_s:.2f} s on the CPU): rec_trace max rel diff "
+          f"{act_trace:.3g}, learned deltas {act_deltas:.3g} (gate "
+          f"{PARITY_RTOL:g})", flush=True)
+    if max(act_trace, act_deltas) > PARITY_RTOL:
+        raise AssertionError(f"card vs CPU act-delta phase: trace "
+                             f"{act_trace}, deltas {act_deltas}")
+    phase("cli runs", t0)
+
+    # run 1's final checkpoint served at batch 256
+    t0 = time.perf_counter()
+    args = load_args(CLI_COMMON + CLI_RUNS[0][1])
+    graph, raw, cfg = cli.build_everything(args, device=DEVICE)
+    params, _ = Q.prepare_model(graph, raw, cfg, device=DEVICE)
+    qs, done = ck.load_qstate(os.path.join(tmp.name, "fused", "QNN_W2_A4"),
+                              device=DEVICE)
+    _, test = cli.build_data(args)
+    x = torch.as_tensor(np.concatenate([b for b, _ in test]), device=DEVICE)
+    tmp.cleanup()
+    aflags = Q.act_flags(graph, cfg, base=Flags().all_weights(graph))
+    sim = forward(graph, params, qs, x, aflags, device=DEVICE)
+    os.environ.update(SSQ_STEM_KERNEL="1", SSQ_PACKED="1", SSQ_DW_KERNEL="0",
+                      SSQ_STEM_1PASS="0")
+    dp = deploy.build_deploy_params(graph, params, qs, device=DEVICE)
+    steps = deploy.act_steps_from_qstate(graph, qs)
+    plan = deploy.make_deploy_plan(graph, dp, steps, input_hw=(HW, HW))
+    kinds = [v[0] for k, v in plan.items() if not k.startswith("__")]
+    kind_counts = {k: kinds.count(k) for k in sorted(set(kinds))}
+    reset_counts()
+    dep = deploy.deploy_forward(graph, dp, steps, x, plan=plan, device=DEVICE)
+    sync()
+    dep_counts = counts()
+    finite = bool(torch.isfinite(sim).all()) and bool(
+        torch.isfinite(dep).all())
+    rel = logit_rel_mse(torch, dep, sim)
+    agree = float((sim.argmax(-1) == dep.argmax(-1)).double().mean())
+    print(f"  served the fused run's checkpoint ({len(done)} targets done): "
+          f"batch {x.shape[0]}, plan kinds {kind_counts}, deploy launches "
+          f"{ {k: v for k, v in dep_counts.items() if v} }; deploy vs sim "
+          f"logit rel-MSE {rel:.4e} (gate {RELMSE_GATE:g}), top-1 agreement "
+          f"{agree:.4f}, finite {finite}", flush=True)
+    if not (finite and rel <= RELMSE_GATE) or x.shape[0] != BATCH:
+        raise AssertionError(f"cli checkpoint serving: rel-MSE {rel}, "
+                             f"finite {finite}")
+    phase("cli serving", t0)
+    return dict(runs=runs, act_parity=dict(
+                    target=ACT_PARITY_TARGET, rows=act_rows,
+                    steps=ACT_PARITY_ITERS, trace_rel=act_trace,
+                    deltas_rel=act_deltas, cpu_s=act_cpu_s),
+                serve_rel_mse=rel, serve_top1_agreement=agree,
+                serve_plan_kinds=kind_counts,
+                serve_launches={k: v for k, v in dep_counts.items() if v})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1771,6 +2023,9 @@ def main():
     res = recon_phases(torch, gen)
     cal_counts, sim_counts = res["cal_counts"], res["sim_counts"]
 
+    # ---- the CLI: fused, brecq + act delta, two-phase ----------------
+    cli_res = cli_phases(torch)
+
     src = "shiftedscalequantization_tpu_torch/csrc/"
 
     def per_forward(rows, key):
@@ -1880,6 +2135,9 @@ def main():
          + sim_counts["fake_quant_weight"],
          "launches_by_route": {"act": sim_counts["fake_quant_act"],
                                "weight": sim_counts["fake_quant_weight"]},
+         "launches_cli": {n: {"act": r["fake_quant_act"],
+                              "weight": r["fake_quant_weight"]}
+                          for n, r in cli_res["runs"].items()},
          "max_abs_err": max(r["err"] for r in fq_rows),
          "ms": per_forward(fq_rows, "ms"),
          "plain_ms": per_forward(fq_rows, "plain_ms"),
@@ -1956,7 +2214,8 @@ def main():
                       "recon_first_target_probe": res["probe"],
                       "recon_card_cpu_rel_mse": res["rc_rel"],
                       "recon_selection_ratios": dict(zip(
-                          map(str, SHIFT_TARGETS), res["roverall"]))}),
+                          map(str, SHIFT_TARGETS), res["roverall"])),
+                      "cli": cli_res}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -158,19 +158,31 @@ def prepare_model(graph: Graph, raw_params: dict, cfg: QuantConfig,
     return folded, qstate
 
 
-def to_device(tree, device):
-    """A copy of params or qstate (dicts, UnitQuant and quantizer
-    dataclasses, tensors or numpy arrays) with every array a tensor on
-    ``device``; other leaves are kept."""
+def _map_arrays(tree, fn):
+    """``tree`` (dicts, UnitQuant and quantizer dataclasses) with ``fn``
+    applied to every tensor or numpy array; other leaves are kept."""
     if torch.is_tensor(tree) or isinstance(tree, np.ndarray):
-        return torch.as_tensor(tree, device=device)
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
+        return {k: _map_arrays(v, fn) for k, v in tree.items()}
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
-            f.name: to_device(getattr(tree, f.name), device)
+            f.name: _map_arrays(getattr(tree, f.name), fn)
             for f in dataclasses.fields(tree)})
     return tree
+
+
+def to_device(tree, device):
+    """A copy of params or qstate with every array a tensor on
+    ``device``."""
+    return _map_arrays(tree, lambda a: torch.as_tensor(a, device=device))
+
+
+def to_numpy(tree):
+    """A copy of params or qstate with every array a CPU numpy array (the
+    checkpoint form; ``to_device`` inverts it)."""
+    return _map_arrays(tree, lambda a: a.detach().cpu().numpy()
+                       if torch.is_tensor(a) else a)
 
 
 def harmonize_residual_chains(graph: Graph, qstate):

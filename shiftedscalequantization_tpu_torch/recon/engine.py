@@ -7,9 +7,16 @@ with Adam against cached FP outputs, then hardens them:
   * mode 'fused': the paper's joint shift + round reconstruction, with the
     warm-start shift pre-solve (``warmstart_frac``) and the post-harden
     rounding-only refine (``post_round_frac``) for coarse candidate sets;
+  * mode 'brecq': AdaRound, the rounding logits with the relaxation
+    regularizer weighted by ``weight``;
   * mode 'shift': the selection alone on full fake-quant candidates (the
-    warm start's pre-solve);
+    warm start's pre-solve, and phase 1 of the pipeline's two-phase mode);
+  * mode 'round': phase 2 of two-phase, AdaRound on the shift phase's
+    selection baked into per-(oc, ic) steps;
   * mode 'round_refine': the rounding logits of baked AdaRound units.
+
+``reconstruct_act_delta`` learns a node's activation steps (the BRECQ act
+phase) with Adam and a cosine learning-rate schedule.
 
 The loop is a plain Python loop with ``torch.optim.Adam(lr=s.lr)``, which
 computes optax.adam's update (the same moments and bias corrections, eps
@@ -22,13 +29,15 @@ sub-streams of the warm start and the refine are ``_fold_in(seed, 877)`` /
 ``(seed, 991)``. The whole step runs with TF32 off (``graph._fp32``), its
 backward included.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: modes 'brecq', 'round' and 'two_phase', the activation phases, and
-the Fisher loss forms (which need ``capture_grads``).
+Not ported yet: the Fisher loss forms (which need ``capture_grads``)
+raise NotImplementedError naming their ROADMAP item; the act-shift phase
+(``reconstruct_act_shift``, queue 1 item 8) is not here, and the pipeline
+refuses it.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -41,8 +50,8 @@ from ..ops import wquant as W
 
 NOT_PORTED = ("is not ported yet (ROADMAP.md, 'Open items', queue 1: "
               "{item})")
-MODES_ITEM = "brecq, two_phase and the act phases"
-FISHER_ITEM = "capture_grads and the Fisher losses"
+ACT_SHIFT_ITEM = "item 8, ops/act_quant.py"
+FISHER_ITEM = "item 4, capture_grads and the Fisher losses"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,7 +251,9 @@ def _reg_terms(qstate, unit_names, step: float, s: ReconSettings):
     before ``s.iters * s.warmup``. 'fused': the rounding regularizer at
     b(step) over iters plus the selection regularizer at b2(step) over a
     3/4 horizon; 'shift': the selection's entropy (AdaRound units: the
-    rounding regularizer); 'round_refine': the rounding regularizer. The
+    rounding regularizer); 'brecq', 'round' and 'round_refine': the
+    rounding regularizer, weighted by ``s.weight`` for brecq and
+    ``s.lmda_r`` for the others. The
     temperatures are float32, as in the JAX engine, and reach the device
     as numbers (no host-to-device copy)."""
     gate = float(step >= s.iters * s.warmup)
@@ -262,11 +273,11 @@ def _reg_terms(qstate, unit_names, step: float, s: ReconSettings):
             r = r + Q.round_regularizer(Q.rectified_sigmoid(wq.beta), b)
             sreg = sreg + Q.round_regularizer(wq.soft_targets(), b2)
         return gate * (s.lmda_r * r + s.lmda_s * sreg)
-    if s.mode == "round_refine":
+    if s.mode in ("brecq", "round", "round_refine"):
         for name in unit_names:
             r = r + Q.round_regularizer(
                 Q.rectified_sigmoid(qstate[name].wq.alpha), b)
-        return gate * s.lmda_r * r
+        return gate * (s.weight if s.mode == "brecq" else s.lmda_r) * r
     if s.mode == "shift":
         for name in unit_names:
             wq = qstate[name].wq
@@ -305,9 +316,8 @@ def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
     ``hard_loss`` on the first batch, ``selection_ratio`` and, when they
     ran, ``warmstart`` and the refine's ``hard_loss_prerefine`` /
     ``refine_trace``."""
-    if s.mode not in ("fused", "shift", "round_refine"):
-        raise NotImplementedError(f"reconstruction mode {s.mode!r} "
-                                  + NOT_PORTED.format(item=MODES_ITEM))
+    if s.mode not in ("fused", "brecq", "shift", "round", "round_refine"):
+        raise ValueError(f"reconstruction mode {s.mode!r}")
     if s.rec_loss != "mse":
         raise NotImplementedError(f"rec_loss {s.rec_loss!r} "
                                   + NOT_PORTED.format(item=FISHER_ITEM))
@@ -418,3 +428,73 @@ def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
         metrics["hard_loss"] = m2["hard_loss"]
         metrics["refine_trace"] = m2.get("rec_trace")
     return qstate, metrics
+
+
+# ---------------------------------------------------------------------------
+# the activation-delta phase
+# ---------------------------------------------------------------------------
+
+def cosine_lr(iters: int):
+    """``optax.cosine_decay_schedule(lr, max(iters, 1), 0.0)`` as a
+    LambdaLR factor: update k (from 0) takes
+    lr * 0.5 * (1 + cos(pi * min(k, T) / T)), T = max(iters, 1)."""
+    t_max = max(iters, 1)
+    return lambda k: 0.5 * (1 + math.cos(math.pi * min(k, t_max) / t_max))
+
+
+def reconstruct_act_delta(graph, params, qstate, node_name: str,
+                          cached_inp, cached_out, s: ReconSettings,
+                          seed: int = 0, p_norm: Optional[float] = None):
+    """Learn a node's act-quant deltas (reference layer_recon.py:57-61,
+    --iters_a/--lr/--p defaults): the scalar delta of each unit act site
+    in the node and, for a block, of its block-level site, by Adam at
+    ``s.act_lr`` with a cosine decay over ``s.iters`` steps, against the
+    L_p loss at ``s.act_p``. The node runs with its weights quantized and
+    those sites on. Returns (new_qstate, metrics with ``rec_trace``)."""
+    p_norm = s.act_p if p_norm is None else p_norm
+    node = find_node(graph, node_name)
+    unit_names = node_unit_names(node)
+    sites = [u for u in unit_names
+             if isinstance(qstate[u], UnitQuant) and qstate[u].aq is not None]
+    block_site = (node_name if isinstance(node, BlockSpec)
+                  and qstate.get(node_name) is not None else None)
+    theta = {u: qstate[u].aq.delta for u in sites}
+    if block_site:
+        theta[node_name] = qstate[node_name].delta
+    theta = {k: v.detach().clone().requires_grad_(True)
+             for k, v in theta.items()}
+    flags = Flags(weight_on=frozenset(unit_names),
+                  act_on=frozenset(theta.keys()))
+
+    def insert(qs, th):
+        qs = dict(qs)
+        for u in sites:
+            qs[u] = dataclasses.replace(
+                qs[u], aq=dataclasses.replace(qs[u].aq, delta=th[u]))
+        if block_site:
+            qs[node_name] = dataclasses.replace(qs[node_name],
+                                                delta=th[node_name])
+        return qs
+
+    metrics = {}
+    if s.iters > 0 and theta:      # a node without act sites learns nothing
+        opt = torch.optim.Adam(list(theta.values()), lr=s.act_lr)
+        sched = torch.optim.lr_scheduler.LambdaLR(opt, cosine_lr(s.iters))
+        gen = torch.Generator().manual_seed(seed)
+        n = cached_inp.shape[0]
+        rows = torch.stack([torch.randperm(n, generator=gen)[: s.batch_size]
+                            for _ in range(s.iters)]).to(cached_inp.device)
+        trace = []
+        with _fp32():
+            for idx in rows:
+                pred = apply_node(node, params, insert(qstate, theta),
+                                  cached_inp[idx].float(), flags)
+                loss = lp_loss_cl(pred, cached_out[idx].float(), p_norm)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+                sched.step()
+                trace.append(loss.detach())
+        metrics["rec_trace"] = torch.stack(trace)
+    return insert(qstate, {k: v.detach() for k, v in theta.items()}), \
+        metrics

@@ -5,9 +5,16 @@ Walk the target nodes in order; for each, capture its inputs under the
 already-reconstructed prefix (asymmetric reconstruction) and its FP
 outputs, reconstruct it, then keep its weight quant on for every later
 capture. Capture goes through one ``CaptureSession`` (the route the JAX
-CLI takes on an accelerator): the FP outputs of every target are cached
-once, within the session's cache limit. The JAX key becomes a seed: a CPU
-``torch.Generator`` seeded with it gives each node its own seed.
+CLI takes on an accelerator) on both devices: the FP outputs of every
+target are cached once, within the session's cache limit. The JAX key
+becomes a seed: a CPU ``torch.Generator`` seeded with it gives each node
+its own seed.
+
+Besides the engine's modes, ``mode="two_phase"`` runs a 'shift' phase and
+then a 'round' phase at twice the steps on the same cache, and
+``act_phase`` learns the activation deltas of weight-reconstructed nodes
+instead. The act-shift phase (``act_phase="shift"``) raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -20,8 +27,8 @@ import torch
 from .._device import resolve_device
 from ..graph import Flags, Graph, find_node, node_unit_names
 from .capture import CaptureSession
-from .engine import MODES_ITEM, NOT_PORTED, ReconSettings, \
-    reconstruct_node
+from .engine import ACT_SHIFT_ITEM, NOT_PORTED, ReconSettings, _fold_in, \
+    reconstruct_act_delta, reconstruct_node
 
 
 def node_seeds(seed: int, n: int):
@@ -34,24 +41,32 @@ def reconstruct_model(graph: Graph, params, qstate,
                       targets: Sequence[str], cali_data,
                       settings: ReconSettings, seed: int = 0,
                       batch_size: int = 64,
+                      base_flags: Optional[Flags] = None,
+                      cache_dtype=None,
                       on_node_done: Optional[Callable] = None,
                       act_phase=False, device="cuda"):
-    """Reconstruct ``targets`` in order, starting from no quantized
-    prefix. Returns (qstate, history, prefix_flags).
+    """Reconstruct ``targets`` in order. Returns (qstate, history,
+    prefix_flags).
 
-    ``on_node_done(name, qstate, metrics, prefix_flags)`` runs after each
-    node (eval, checkpoint, logging). Each node's metrics gain
-    ``capture_s`` and ``recon_s`` (host seconds, the card synchronised)
-    and ``wall_s``."""
-    if act_phase or settings.mode == "two_phase":
-        what = f"act_phase={act_phase!r}" if act_phase else "mode 'two_phase'"
-        raise NotImplementedError(f"{what} "
-                                  + NOT_PORTED.format(item=MODES_ITEM))
+    ``base_flags``: the starting prefix (the units done before a resume,
+    and ``output_affine``, which the capture folds into the prefix's
+    weights). ``cache_dtype``: dtype of the cached activations (None keeps
+    float32). ``on_node_done(name, qstate, metrics, prefix_flags)`` runs
+    after each node (eval, checkpoint, logging). ``act_phase``: True or
+    'delta' learns each node's act deltas (the BRECQ act phase) instead of
+    its weights, which are assumed hardened and on via ``base_flags``.
+    Each node's metrics gain ``capture_s`` and ``recon_s`` (host seconds,
+    the card synchronised) and ``wall_s``; a two-phase node's hold the
+    round phase's, with the shift phase's under ``shift_phase``."""
+    if act_phase == "shift":
+        raise NotImplementedError("act_phase='shift' "
+                                  + NOT_PORTED.format(item=ACT_SHIFT_ITEM))
     dev = resolve_device(device)
-    prefix = Flags()
+    prefix = base_flags if base_flags is not None else Flags()
     history = {}
     session = CaptureSession(graph, params, cali_data, targets,
-                             batch_size=batch_size, device=dev)
+                             batch_size=batch_size,
+                             output_affine=prefix.output_affine, device=dev)
 
     def sync():
         if dev.type == "cuda":
@@ -60,12 +75,29 @@ def reconstruct_model(graph: Graph, params, qstate,
     for name, node_seed in zip(targets, node_seeds(seed, len(targets))):
         t0 = time.perf_counter()
         cached_inp, cached_out = session.capture(
-            qstate, name, prefix.weight_on)
+            qstate, name, prefix.weight_on, cache_dtype=cache_dtype)
         sync()
         t1 = time.perf_counter()
-        qstate, metrics = reconstruct_node(
-            graph, params, qstate, name, cached_inp, cached_out, settings,
-            seed=node_seed)
+        if act_phase:
+            qstate, metrics = reconstruct_act_delta(
+                graph, params, qstate, name, cached_inp, cached_out,
+                settings, seed=node_seed)
+        elif settings.mode == "two_phase":
+            # per-node shift phase, then the round phase on the same cache
+            # (reference run_ShiftRecon: iters_for_round = 2 * iters)
+            qstate, m1 = reconstruct_node(
+                graph, params, qstate, name, cached_inp, cached_out,
+                dataclasses.replace(settings, mode="shift"), seed=node_seed)
+            qstate, metrics = reconstruct_node(
+                graph, params, qstate, name, cached_inp, cached_out,
+                dataclasses.replace(settings, mode="round",
+                                    iters=settings.iters * 2),
+                seed=_fold_in(node_seed, 2))
+            metrics["shift_phase"] = m1
+        else:
+            qstate, metrics = reconstruct_node(
+                graph, params, qstate, name, cached_inp, cached_out,
+                settings, seed=node_seed)
         sync()
         del cached_inp, cached_out
         # keep this node quantized for the captures after it

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 import shiftedscalequantization_tpu_torch as tp
-from shiftedscalequantization_tpu_torch import deploy as TD
+from shiftedscalequantization_tpu_torch import cli, deploy as TD
 from shiftedscalequantization_tpu_torch.models import zoo as TZ
 from shiftedscalequantization_tpu_torch.ops.cuda import _build
 from shiftedscalequantization_tpu_torch.utils import jax_import as JI
@@ -31,7 +31,9 @@ def test_port_and_smoke_script_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 18
     for new in ("ops/cuda/fake_quant.py", "recon/capture.py",
-                "recon/engine.py", "recon/pipeline.py"):
+                "recon/engine.py", "recon/pipeline.py", "cli.py", "train.py",
+                "data/datasets.py", "data/realdata.py", "utils/config.py",
+                "utils/logging.py", "utils/eval.py", "utils/checkpoint.py"):
         assert PORT / new in files, new
     for path in files:
         for name in _imports(path):
@@ -89,6 +91,9 @@ def test_entry_points_without_a_card_raise(no_card):
         TD.deploy_forward(graph, dp, steps, x)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         JI.params_from_numpy({"w": np.zeros(3, np.float32)})
+    # the CLI without --platform cpu (default auto: the card)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--dataset", "cifar10", "--synthetic_data", "true"])
 
 
 def test_unported_weight_quantizer_is_refused():

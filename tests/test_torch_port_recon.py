@@ -164,13 +164,15 @@ def _reg_state(mode, seed=0):
     package with seeded noise on the logits (as a trained state has)."""
     st = _state()
     units = list(UNITS)
-    s = JE.ReconSettings(mode="fused" if mode == "round_refine" else mode,
-                         iters=100, shift_targets=(0.5, 1.0),
-                         fused_dequant="effective")
+    first = {"round_refine": "fused", "round": "shift"}.get(mode, mode)
+    s = JE.ReconSettings(mode=first, iters=100, shift_targets=(0.5, 1.0),
+                         fused_dequant="effective", weight=0.03)
     qs, _ = JE._init_quantizers(st["params"], st["qs"], units, s)
-    if mode == "round_refine":
-        qs = JE._harden(qs, units, "fused")
-        s = dataclasses.replace(s, mode="round_refine")
+    if mode != first:
+        # the refine re-opens a hardened fused state, two-phase's round
+        # phase bakes a hardened shift-phase state
+        qs = JE._harden(qs, units, first)
+        s = dataclasses.replace(s, mode=mode)
         qs, _ = JE._init_quantizers(st["params"], qs, units, s)
     rng = np.random.default_rng(seed)
     for u in units:
@@ -184,10 +186,12 @@ def _reg_state(mode, seed=0):
     return st, qs, s, JI.qstate_from_numpy(_np(qs), "cpu")
 
 
-@pytest.mark.parametrize("mode", ["fused", "shift", "round_refine"])
+@pytest.mark.parametrize("mode", ["fused", "shift", "round_refine",
+                                  "brecq", "round"])
 def test_reg_terms_match_jax(mode):
     """The regularizers at steps before, at and after the warmup gate and
-    at the end of both temperature horizons: rtol 1e-6."""
+    at the end of both temperature horizons (AdaRound's weighted by
+    ``weight`` in 'brecq', by ``lmda_r`` in 'round'): rtol 1e-6."""
     _, jqs, s, tqs = _reg_state(mode)
     for step in (0, 19, 20, 21, 50, 74, 75, 99):
         want = float(JE._reg_terms(jqs, list(UNITS), jnp.float32(step), s,
@@ -201,19 +205,20 @@ def test_reg_terms_match_jax(mode):
 
 
 def test_unported_modes_raise(tiny):
+    """What is still not ported raises NotImplementedError naming its
+    ROADMAP item: the Fisher loss forms (queue 1 item 4) and the act-shift
+    phase (item 8); an unknown mode is a ValueError."""
     ci, co = (torch.zeros((4, 8, 8, 8)),) * 2
-    for mode in ("brecq", "round", "act_delta"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TE.reconstruct_node(tiny["gt"], tiny["tparams"], tiny["tqs"],
-                                BLOCK, ci, co, TE.ReconSettings(mode=mode))
-    with pytest.raises(NotImplementedError, match="Fisher"):
+    with pytest.raises(NotImplementedError, match="item 4.*Fisher"):
         TE.reconstruct_node(tiny["gt"], tiny["tparams"], tiny["tqs"], BLOCK,
                             ci, co, TE.ReconSettings(rec_loss="fisher_full"))
-    for kw in (dict(settings=TE.ReconSettings(mode="two_phase")),
-               dict(settings=TE.ReconSettings(), act_phase="delta")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TP.reconstruct_model(tiny["gt"], tiny["tparams"], tiny["tqs"],
-                                 [BLOCK], tiny["tcali"], device="cpu", **kw)
+    with pytest.raises(ValueError, match="act_delta"):
+        TE.reconstruct_node(tiny["gt"], tiny["tparams"], tiny["tqs"], BLOCK,
+                            ci, co, TE.ReconSettings(mode="act_delta"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
+        TP.reconstruct_model(tiny["gt"], tiny["tparams"], tiny["tqs"],
+                             [BLOCK], tiny["tcali"], TE.ReconSettings(),
+                             act_phase="shift", device="cpu")
 
 
 # ---------------------------------------------------------------------------

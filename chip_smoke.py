@@ -133,6 +133,44 @@ non-zero exit and no result line:
 21. cli serving: the fused run's final checkpoint loaded onto the card
    and served through build_deploy_params / deploy_forward at batch 256
    (the CLI's test images): deploy vs sim logit rel-MSE <= 1e-2, no NaN.
+22. regnet setup: RegNetX-600M ImageNet W2A4 at full width, weights
+   and calibration images drawn with numpy (host_params, host_images:
+   a recipe regnet_parity_gap.py repeats for the JAX package on the
+   CPU), MSE scales, calibration on 16 images, in two states: uniform,
+   and baked (the fused quantizers, targets SHIFT_TARGETS, hardened);
+   each plan under the JAX package's defaults must hold the JAX plan's
+   kinds (REGNET_KINDS: uniform 4 int8_bd and 12 grouped units, baked
+   16 grouped); the kinds under SSQ_PACKED=1 are printed;
+23. group conv kernel: int8_group_conv against its plain version with
+   torch.equal at each grouped shape of both plans at batch 256, S = 1
+   (int32 sums) and S = 2 (scale-table sum), offsets 0 and 128, in sums
+   mode and in every requant epilogue of REQUANT_VARIANTS (each also
+   against the sums launch followed by quantize_out), timed by
+   CUDA-graph replay (eager beside) next to its bound and S cuDNN bf16
+   grouped convs on the same codes; then at GROUP_ODD_SHAPES (Cg 8, 5,
+   12, OC/G not a multiple of 8, S = 3) at batch 32; and int8_conv
+   against its plain version at every dense integer shape of both
+   plans (int8_bd units on their block-diagonal operand);
+24-25. regnet serving + parity: one deploy forward per state at batch
+   256 with the counters reset just before it (REGNET_LAUNCHES: 12
+   grouped + 40 int8_conv launches uniform, 16 + 36 baked; one requant
+   left, the float stem's), its time, the forward under SSQ_PACKED=1
+   and the port's bf16 float forward; sim (TF32 off) against deploy, no
+   NaN, rel-MSE <= 1e-2, beside the JAX package's own gap on the recipe
+   (JAX_GAP); card vs CPU deploy on 8 grid images, rel-MSE <= 1e-8,
+   same top-1;
+26. int8_pair: ResNet-18 ImageNet W4A8 under phase 4's switches
+   (R18_W4A8_KINDS: 13 int8_pair units), int8_conv at its dense shapes
+   (offset 128 for the int8_pair units), then served and gated as in
+   24-25 (19 int8_conv launches, no requant left);
+27. regnet cli: the port's CLI on the trained RegNetX-600M (CIFAR
+   variant, synth10), REGNET_CLI_COMMON with --mode brecq and then
+   --mode fused, each in its own process under REGNET_CLI_TIMEOUT_S;
+   FP top-1, top-1 after each target, final top-1 and the deploy top-1
+   of the final state on the 2048 test images, beside
+   ACCURACY_regnet_r4.md; gates: FP top-1 equals the port CLI's on the
+   CPU (PORT_CLI_FP_TOP1), brecq's final top-1 >= FP - 3 points, deploy
+   within 0.5 points of the final (sim) top-1.
 
 It imports nothing of JAX. Standard output ends with a JSON line of
 details, a JSON line of the kernels, the nvidia-smi line, the total
@@ -159,7 +197,8 @@ MNV2_KINDS = {"dw_int8": 16, "packed": 34, "bf16_codes": 1, "float_1p": 1,
 # packed epilogues; MobileNetV2's float_1p stem and the bf16_codes
 # depthwise unit fed by it have no requant epilogue
 UNFUSED = {"resnet18": 0, "resnet18_shifted": 0, "resnet18_reconstructed": 0,
-           "mobilenetv2": 2}
+           "mobilenetv2": 2, "regnetx_600m_uniform": 1,
+           "regnetx_600m_baked": 1, "resnet18_w4a8": 0}
 SHIFT_TARGETS = (0.5, 1.0)       # the method path's candidate set
 RECON_IMAGES = 256               # calibration set of the reconstruction
 RECON_ITERS = 200                # optimizer steps per target (CLI: 20000)
@@ -175,6 +214,57 @@ GRAD_RTOL = 1e-4                 # delta / zp gradients: sums in two orders
 BATCH = 256
 HW = 224
 DEVICE = "cuda"                  # the card; the checks allocate here
+# RegNetX-600M (phases 22-25): the plan kinds the JAX package gives both
+# states under its defaults at 224x224 (tests/test_torch_port_regnet.py
+# pins them against its plan on the CPU), and the launches of one deploy
+# forward: the grouped f.b units on int8_group_conv, every other integer
+# unit (int8_bd densified) on int8_conv
+REGNET_KINDS = {
+    "uniform": {"float_1p": 1, "float": 1, "int8_bd": 4, "int8": 30,
+                "bf16_codes": 18},
+    "baked": {"float_1p": 1, "float": 1, "int8": 34, "bf16_codes": 18}}
+REGNET_LAUNCHES = {"uniform": dict(int8_group_conv=12, int8_conv=40),
+                   "baked": dict(int8_group_conv=16, int8_conv=36)}
+# the JAX package's own deploy-vs-sim logit rel-MSE on the same recipe
+# (regnet_parity_gap.py --images 32, on the CPU): the share of the gap
+# that belongs to the reference
+JAX_GAP = {"regnetx_600m_uniform": 5.657550433364477e-04,
+           "regnetx_600m_baked": 5.703625017323605e-04,
+           # its plan under its defaults (a float_1p stem where the card
+           # runs the stem kernel): the 13 int8_pair units are the same
+           "resnet18_w4a8": 6.907369906493377e-06}
+# ResNet-18 ImageNet W4A8 under phase 4's switches (phase 26): the 8-bit
+# unsigned feeds of the 13 wide units are int8_pair
+R18_W4A8_KINDS = {"stem_fused": 1, "int8_pair": 13, "bf16_codes": 6,
+                  "float": 1}
+# grouped shapes outside RegNetX-600M's, checked at batch 32: (H, W, C,
+# N, conv groups, kernel, stride, padding, weight groups S): regnetx_200m's
+# Cg = 8 at stride 2, an odd Cg = OC/G = 5, OC/G = 18 with Cg = 12, and
+# S = 3 at Cg = 24
+GROUP_ODD_SHAPES = [(56, 56, 24, 24, 3, 3, 2, 1, 2),
+                    (15, 15, 15, 15, 3, 3, 2, 1, 3),
+                    (28, 28, 48, 72, 4, 3, 1, 1, 2),
+                    (14, 14, 240, 240, 10, 3, 1, 1, 3)]
+# phase 27: the port's CLI on the trained RegNetX-600M (CIFAR variant) on
+# synth10, the flags of ACCURACY_regnet_r4.md (FP 99.80, brecq final
+# 98.83, integer deploy 98.78 for the JAX package on a TPU); each run in a
+# process of its own under REGNET_CLI_TIMEOUT_S
+REGNET_CLI_COMMON = ["--arch", "regnetx_600m", "--dataset", "synth10",
+                     "--pretrained", "trained_regnetx_600m_synth10.npz",
+                     "--n_bits_w", "2", "--n_bits_a", "4", "--iters_w", "300",
+                     "--iters_a", "150", "--num_samples", "256"]
+REGNET_CLI_MODES = ("brecq", "fused")
+REGNET_CLI_TIMEOUT_S = 420
+# FP top-1 on the CPU, same flags (--platform cpu): the port's CLI, 2048
+# of its 2048 synth10 test images, is the gate; the JAX CLI's, 2044 of
+# 2048, is printed beside: the port draws synth10 from a torch.Generator
+# (data/realdata.py), so its test images are not the JAX CLI's (the CPU
+# test test_torch_port_regnet.py holds the port's FP logits on the JAX
+# CLI's own test images to the JAX package's)
+PORT_CLI_FP_TOP1 = 100.0
+JAX_CLI_FP_TOP1 = 99.8046875
+REGNET_FINAL_DROP = 3.0          # brecq final top-1 >= FP - 3 points
+REGNET_DEPLOY_GAP = 0.5          # |deploy - sim| top-1, points
 _T0 = time.perf_counter()
 
 
@@ -587,24 +677,64 @@ def check_quant_matmul(torch, gen, int_matmul):
     return rows
 
 
-def serving_setup(torch, gen, arch="resnet18", shifted=False):
-    """An ImageNet model (ResNet-18 or MobileNetV2) at W2A4 at full width,
-    seeded weights, all on the card: BN fold + MSE weight scales, act
-    calibration on 16 images, and with ``shifted`` the method's fused
-    shifted-scale quantizers (targets SHIFT_TARGETS) hardened as the
-    reconstruction engine hardens them; then deploy conversion. Returns
-    (graph, cfg, params, qstate, dparams, steps)."""
+def host_params(torch, graph, seed=0):
+    """He-normal weights drawn with numpy in unit order from
+    default_rng(seed), identity BN, zero linear bias, on the card: a
+    recipe the CPU can repeat without the card (regnet_parity_gap.py
+    draws the same for the JAX package)."""
+    import numpy as np
+    from shiftedscalequantization_tpu_torch.graph import iter_units
+    rng = np.random.default_rng(seed)
+    out = {}
+    for u in iter_units(graph):
+        shape = (u.out_ch, u.in_ch // u.groups, *u.kernel) \
+            if u.kind == "conv" else (u.out_ch, u.in_ch)
+        fan_in = int(np.prod(shape[1:]))
+        w = rng.standard_normal(shape, dtype=np.float32) \
+            * np.float32(np.sqrt(2.0 / fan_in))
+        p = {"w": torch.as_tensor(w, device=DEVICE)}
+        c = u.out_ch
+        if u.has_bn:
+            p["bn"] = {k: torch.full((c,), v, device=DEVICE) for k, v in
+                       (("gamma", 1.0), ("beta", 0.0), ("mean", 0.0),
+                        ("var", 1.0))}
+        else:
+            p["b"] = torch.zeros((c,), device=DEVICE)
+        out[u.name] = p
+    return out
+
+
+def host_images(torch, n, seed):
+    """n standard-normal 224x224 NHWC images from numpy's
+    default_rng(seed), on the card."""
+    import numpy as np
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (n, HW, HW, 3), dtype=np.float32), device=DEVICE)
+
+
+def serving_setup(torch, gen, arch="resnet18", shifted=False, bits=(2, 4),
+                  host=False):
+    """An ImageNet model (ResNet-18, MobileNetV2 or RegNetX-600M) at full
+    width, W2A4 or ``bits``, seeded weights, all on the card: BN fold + MSE
+    weight scales, act calibration on 16 images, and with ``shifted`` the
+    method's fused shifted-scale quantizers (targets SHIFT_TARGETS)
+    hardened as the reconstruction engine hardens them; then deploy
+    conversion. ``host`` draws the weights and the calibration images
+    with numpy (host_params, host_images seed 1), else with the card's
+    generators. Returns (graph, cfg, params, qstate, dparams, steps)."""
     from shiftedscalequantization_tpu_torch import deploy
     from shiftedscalequantization_tpu_torch import quantize as Q
     from shiftedscalequantization_tpu_torch.models import zoo
     from shiftedscalequantization_tpu_torch.recon import engine
     graph, _ = zoo.build(arch, dataset="imagenet")
-    raw = zoo.init_params(graph, seed=0, device="cuda")
-    cfg = Q.QuantConfig(n_bits_w=2, n_bits_a=4)
-    params, qstate = Q.prepare_model(graph, raw, cfg, device="cuda")
-    calib = torch.randn((16, HW, HW, 3), generator=gen, device="cuda")
+    raw = host_params(torch, graph) if host \
+        else zoo.init_params(graph, seed=0, device=DEVICE)
+    cfg = Q.QuantConfig(n_bits_w=bits[0], n_bits_a=bits[1])
+    params, qstate = Q.prepare_model(graph, raw, cfg, device=DEVICE)
+    calib = host_images(torch, 16, 1) if host \
+        else torch.randn((16, HW, HW, 3), generator=gen, device=DEVICE)
     qstate = Q.calibrate_acts(graph, params, qstate, calib, cfg,
-                              device="cuda")
+                              device=DEVICE)
     if shifted:
         names = Q.unit_order(graph)
         qstate, _ = engine._init_quantizers(
@@ -612,7 +742,7 @@ def serving_setup(torch, gen, arch="resnet18", shifted=False):
             engine.ReconSettings(mode="fused", shift_targets=SHIFT_TARGETS))
         qstate = engine._harden(qstate, names, "fused")
     dparams = deploy.build_deploy_params(graph, params, qstate,
-                                         device="cuda")
+                                         device=DEVICE)
     steps = deploy.act_steps_from_qstate(graph, qstate)
     return graph, cfg, params, qstate, dparams, steps
 
@@ -1225,11 +1355,12 @@ def margin_reading(torch, sim, dep):
 def kernel_counters():
     """Every kernel wrapper of the port that counts its launches."""
     from shiftedscalequantization_tpu_torch.ops.cuda import depthwise, \
-        fake_quant, int_matmul, mbconv, packed, stem
+        fake_quant, group_conv, int_matmul, mbconv, packed, stem
     return (stem.stem_fused, packed.packed_quant_matmul, int_matmul.int8_conv,
             int_matmul.quant_matmul, depthwise.dw_conv3x3_int8,
             mbconv.mbconv_fused, fake_quant.fake_quant_2d,
-            fake_quant.fake_quant_act, fake_quant.fake_quant_weight)
+            fake_quant.fake_quant_act, fake_quant.fake_quant_weight,
+            group_conv.int8_group_conv)
 
 
 def reset_counts():
@@ -1717,6 +1848,556 @@ def cli_phases(torch):
                 serve_launches={k: v for k, v in dep_counts.items() if v})
 
 
+# ---------------------------------------------------------------------------
+# RegNetX-600M, the grouped int8 conv kernel, int8_pair (phases 22-27)
+# ---------------------------------------------------------------------------
+
+def plan_counts(plan):
+    kinds = [v[0] for k, v in plan.items() if not k.startswith("__")]
+    return {k: kinds.count(k) for k in sorted(set(kinds))}
+
+
+def serving_env(**env):
+    """The SSQ_* switches at the JAX package's defaults, then ``env``."""
+    os.environ.update(SSQ_STEM_KERNEL="0", SSQ_PACKED="0", SSQ_DW_KERNEL="0",
+                      SSQ_STEM_1PASS="1")
+    os.environ.update(env)
+
+
+def group_conv_shapes(graph, plan):
+    """{(H, W, C, N, G, kernel, stride, padding): {role: count}} of the
+    grouped units a plan sends through int8_group_conv."""
+    shapes = role_counts(
+        graph, plan, ("int8", "bf16_codes", "int8_pair"),
+        lambda u, hw: (*hw, u.in_ch, u.out_ch, u.groups, u.kernel[0],
+                       u.stride[0], u.padding[0]) if u.groups > 1 else None)
+    shapes.pop(None, None)
+    return shapes
+
+
+def dense_int_shapes(graph, plan):
+    """{(H, W, C, N, kernel, stride, padding, offset): count} of the units
+    a plan sends through int8_conv (int8_bd densified, int8_pair with
+    offset 128; a linear unit as 1x1 rows)."""
+    from shiftedscalequantization_tpu_torch.graph import iter_units
+    from shiftedscalequantization_tpu_torch import deploy
+    hw = deploy._unit_in_hw(graph, (HW, HW))
+    out = {}
+    for u in iter_units(graph):
+        kind = plan[u.name][0]
+        if kind not in ("int8", "bf16_codes", "int8_bd", "int8_pair") \
+                or (u.groups > 1 and kind != "int8_bd"):
+            continue
+        geo = (1, 1, 0) if u.kind == "linear" else \
+            (u.kernel[0], u.stride[0], u.padding[0])
+        key = ((1, 1) if u.kind == "linear" else hw[u.name]) + (
+            u.in_ch, u.out_ch, *geo, 128 if kind == "int8_pair" else 0)
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _group_case(torch, gen, b, h, w, c, n, g, k, s_n):
+    """Codes (4-bit centered, and the int8 range for offset 128) and W2
+    codes for S weight groups masked per input channel of a conv group."""
+    cg = c // g
+    kk = k * k * cg
+    x4 = torch.randint(-8, 8, (b, h, w, c), generator=gen, device=DEVICE,
+                       dtype=torch.int8)
+    x8 = torch.randint(-128, 128, (b, h, w, c), generator=gen,
+                       device=DEVICE, dtype=torch.int8)
+    # symmetric weights: the biased feed's centered codes are >= 0
+    w1 = torch.randint(-2, 3, (1, n, kk), generator=gen, device=DEVICE,
+                       dtype=torch.int8)
+    sel = torch.randint(0, s_n, (cg,), generator=gen, device=DEVICE) \
+        .repeat(k * k)                        # group of each K position
+    ws = torch.stack([torch.where(sel == s, w1[0], 0)
+                      for s in range(s_n)]).to(torch.int8).contiguous()
+    return x4, x8, w1, ws, kk
+
+
+def check_group_conv(torch, gen, gc, requant, deploy, shapes, uniform_shapes):
+    """int8_group_conv vs its plain version at each grouped shape of the
+    baked (``shapes``, S = 2) and uniform (S = 1) RegNetX-600M plans at
+    batch 256, 4-bit codes (offset 0) and the int8 range (offset 128):
+    torch.equal in sums mode (int32 at S = 1, the f32 scale-table sum at
+    S = 2) and in every requant variant, each also against the same
+    launch in sums mode followed by quantize_out. Timed by CUDA-graph
+    replay in each role's mode and in sums mode (eager beside), next to
+    the bound (the bytes the mode reads and writes once, or all S groups'
+    int8 operations) and S cuDNN bf16 grouped convs on the same codes (the
+    library yardstick)."""
+    import torch.nn.functional as F
+    ctx = requant_context(torch, deploy, DEVICE)
+    rows = []
+    for key in sorted(set(shapes) | set(uniform_shapes), reverse=True):
+        h, w, c, n, g, k, st, p = key
+        geom = ((k, k), (st, st), (p, p))
+        ho, wo = (h + 2 * p - k) // st + 1, (w + 2 * p - k) // st + 1
+        m = BATCH * ho * wo
+        x4, x8, w1, w2, kk = _group_case(torch, gen, BATCH, h, w, c, n, g, k,
+                                         2)
+        delta = torch.tensor(0.37, device=DEVICE)
+        label = f"int8_group_conv {h}x{w}x{c}->{n} G{g} k{k}/s{st}"
+        ms, eager, bytes_, res = {}, {}, {}, None
+        for s_n, wm in ((1, w1), (2, w2)):
+            for offset in (0, 128):
+                x = x8 if offset else x4
+                spread = (209.0 if offset else 6.6) * math.sqrt(kk)
+                scale, bias = _scaled(torch, gen, n, DEVICE, spread)
+                table = None if s_n == 1 else torch.stack(
+                    [scale * 0.5, scale]) / delta
+                off = offset * wm.sum(dim=2, dtype=torch.int32) \
+                    if offset else None
+                kw = dict(pad_value=-offset, group_scales=table,
+                          act_delta=delta, acc_offset=off)
+                got = gc.int8_group_conv(x, wm, *geom, g, **kw)
+                want = gc.int8_group_conv_plain(x, wm, *geom, g, **kw)
+                torch.cuda.synchronize()
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    raise AssertionError(f"{label} S={s_n} offset {offset}: "
+                                         "sums differ from the plain version")
+                if res is None:
+                    res = residuals(torch, gen, got.shape, DEVICE)
+                pend = deploy._Pending(got.float(), scale, bias) \
+                    if s_n == 1 else deploy._Pending(got, None, bias)
+                rqs = check_requant_modes(
+                    torch, deploy, requant,
+                    f"{label} S={s_n} offset {offset}",
+                    lambda rq: gc.int8_group_conv(x, wm, *geom, g,
+                                                  requant=rq, **kw),
+                    want.float(), pend, res, ctx)
+                if offset:
+                    continue
+                tag = f"S={s_n}"
+                base = BATCH * h * w * c + s_n * n * kk
+                fn = lambda: gc.int8_group_conv(x, wm, *geom, g,  # noqa
+                                                **kw)
+                ms[(tag, "sums")] = time_graph(fn)
+                eager[(tag, "sums")] = time_cuda(fn)
+                bytes_[(tag, "sums")] = base + 4 * m * n + 4 * s_n * n
+                roles = (shapes if s_n == 2 else uniform_shapes).get(key, {})
+                for role in roles:
+                    rq = rqs[ROLE_VARIANT[role]]
+                    fn = lambda: gc.int8_group_conv(  # noqa: E731
+                        x, wm, *geom, g, requant=rq, **kw)
+                    ms[(tag, role)] = time_graph(fn)
+                    eager[(tag, role)] = time_cuda(fn)
+                    bytes_[(tag, role)] = base + m * n + 4 * s_n * n
+        plain_ms = time_cuda(lambda: gc.int8_group_conv_plain(
+            x4, w2, *geom, g, group_scales=table, act_delta=delta),
+            iters=3, warmup=1)
+        xb = x4.permute(0, 3, 1, 2).to(torch.bfloat16)     # channels_last
+        wbs = [w2[s].reshape(n, k, k, c // g).permute(0, 3, 1, 2)
+               .to(torch.bfloat16) for s in range(2)]
+        lib = {"S=1": time_graph(lambda: F.conv2d(xb, wbs[0], None, st, p,
+                                                  1, g)),
+               "S=2": time_graph(lambda: [F.conv2d(xb, wb, None, st, p, 1, g)
+                                          for wb in wbs])}
+        bound = {kr: bound_ms(nb, 2 * m * n * kk * int(kr[0][-1]), INT8_OPS)
+                 for kr, nb in bytes_.items()}
+        print(f"  {label} (baked {shapes.get(key, {})}, uniform "
+              f"{uniform_shapes.get(key, {})}): " + ", ".join(
+                  f"{t} {r} {v:.4f} ms (eager {eager[(t, r)]:.4f}; bound "
+                  f"{bound[(t, r)][0]:.4f} by {bound[(t, r)][1]})"
+                  for (t, r), v in ms.items())
+              + f"; plain (S=2) {plain_ms:.4f}, cuDNN bf16 grouped S=1 "
+              f"{lib['S=1']:.4f} / S=2 {lib['S=2']:.4f}; sums and "
+              f"{len(REQUANT_VARIANTS)} requant variants bit-exact at S = 1, "
+              "2 and offsets 0, 128", flush=True)
+        rows.append(dict(
+            shape=key, roles=shapes.get(key, {}),
+            uniform_roles=uniform_shapes.get(key, {}),
+            ms={r: v for (t, r), v in ms.items() if t == "S=2"},
+            ms_s1={r: v for (t, r), v in ms.items() if t == "S=1"},
+            eager_ms={r: v for (t, r), v in eager.items() if t == "S=2"},
+            eager_s1_ms={r: v for (t, r), v in eager.items() if t == "S=1"},
+            bound_ms={r: v[0] for (t, r), v in bound.items() if t == "S=2"},
+            bound_s1_ms={r: v[0] for (t, r), v in bound.items()
+                         if t == "S=1"},
+            bound_by={r: v[1] for (t, r), v in bound.items() if t == "S=2"},
+            bound_s1_by={r: v[1] for (t, r), v in bound.items()
+                         if t == "S=1"},
+            plain_ms=plain_ms, library_ms=lib["S=2"],
+            library_s1_ms=lib["S=1"], err=0.0))
+    return rows
+
+
+def check_group_conv_odd(torch, gen, gc, requant, deploy):
+    """The grouped kernel at GROUP_ODD_SHAPES, batch 32: torch.equal with
+    the plain version in sums mode (int32 at S = 1, the scale-table sum at
+    the shape's S) and every requant variant, offsets 0 and 128."""
+    ctx = requant_context(torch, deploy, DEVICE)
+    for h, w, c, n, g, k, st, p, s_top in GROUP_ODD_SHAPES:
+        geom = ((k, k), (st, st), (p, p))
+        x4, x8, w1, ws, kk = _group_case(torch, gen, 32, h, w, c, n, g, k,
+                                         s_top)
+        label = f"int8_group_conv {h}x{w}x{c}->{n} G{g} k{k}/s{st}"
+        delta = torch.tensor(0.37, device=DEVICE)
+        res = None
+        for s_n, wm in ((1, w1), (s_top, ws)):
+            for offset in (0, 128):
+                x = x8 if offset else x4
+                scale, bias = _scaled(torch, gen, n, DEVICE, (
+                    209.0 if offset else 6.6) * math.sqrt(kk))
+                table = None if s_n == 1 else torch.stack(
+                    [scale * (0.5 + 0.25 * s) for s in range(s_n)]) / delta
+                kw = dict(pad_value=-offset, group_scales=table,
+                          act_delta=delta,
+                          acc_offset=offset * wm.sum(dim=2, dtype=torch.int32)
+                          if offset else None)
+                got = gc.int8_group_conv(x, wm, *geom, g, **kw)
+                want = gc.int8_group_conv_plain(x, wm, *geom, g, **kw)
+                torch.cuda.synchronize()
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    raise AssertionError(f"{label} S={s_n} offset {offset}: "
+                                         "sums differ from the plain version")
+                if res is None:
+                    res = residuals(torch, gen, got.shape, DEVICE)
+                pend = deploy._Pending(got.float(), scale, bias) \
+                    if s_n == 1 else deploy._Pending(got, None, bias)
+                check_requant_modes(
+                    torch, deploy, requant,
+                    f"{label} S={s_n} offset {offset}",
+                    lambda rq: gc.int8_group_conv(x, wm, *geom, g,
+                                                  requant=rq, **kw),
+                    want.float(), pend, res, ctx)
+        print(f"  {label} batch 32 (Cg {c // g}, OC/G {n // g}): sums and "
+              f"{len(REQUANT_VARIANTS)} requant variants bit-exact at S = 1, "
+              f"{s_top} and offsets 0, 128", flush=True)
+
+
+def check_dense_int(torch, gen, int_matmul, shapes, label):
+    """int8_conv vs its plain version at each dense integer shape of a
+    path at batch 256 (int8_bd units on their block-diagonal operand, a
+    linear unit as 1x1 rows), in the path's mode: 4-bit codes, or the int8
+    range with offset 128 for int8_pair, int32 sums and the scale-table
+    sum of two weight groups, torch.equal."""
+    for (h, w, c, n, k, st, p, offset), count in sorted(shapes.items()):
+        geom = ((k, k), (st, st), (p, p))
+        lo = -128 if offset else -8
+        x = torch.randint(lo, -lo, (BATCH, h, w, c), generator=gen,
+                          device=DEVICE, dtype=torch.int8)
+        wm = torch.randint(-2, 3, (2, n, k * k * c), generator=gen,
+                           device=DEVICE, dtype=torch.int8)
+        off = offset * wm.sum(dim=2, dtype=torch.int32) if offset else None
+        table = torch.rand((2, n), generator=gen, device=DEVICE) * 0.02
+        for kw in (dict(acc_offset=None if off is None else off[:1]),
+                   dict(acc_offset=off, group_scales=table,
+                        act_delta=torch.tensor(0.37, device=DEVICE))):
+            wk = wm if "group_scales" in kw else wm[:1].contiguous()
+            got = int_matmul.int8_conv(x, wk, *geom, pad_value=-offset, **kw)
+            want = int_matmul.int8_conv_plain(x, wk, *geom,
+                                              pad_value=-offset, **kw)
+            torch.cuda.synchronize()
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(
+                    f"int8_conv {h}x{w}x{c}->{n} k{k}/s{st} offset {offset} "
+                    f"({label}): differs from the plain version")
+    print(f"  int8_conv at the {len(shapes)} dense integer shapes of "
+          f"{label} ({sum(shapes.values())} units): int32 and scale-table "
+          "sums bit-exact", flush=True)
+
+
+def serve_state(torch, deploy, Q, forward, Flags, name, setup, x, launches,
+                unfused_key):
+    """One deploy forward at batch 256 with the counters reset just before
+    it, gated on its launches and requants left; its time; the sim
+    forward (TF32 off) against it; card vs CPU deploy on 8 grid images.
+    Returns what the result lines report."""
+    graph, cfg, params, qstate, dparams, steps = setup
+    plan = deploy.make_deploy_plan(graph, dparams, steps, input_hw=(HW, HW))
+    reset_counts()
+    logits = deploy.deploy_forward(graph, dparams, steps, x, plan=plan,
+                                   device=DEVICE)
+    torch.cuda.synchronize()
+    got = counts()
+    unfused = got.pop("unfused")
+    print(f"  {name}: launches in one deploy forward "
+          f"{ {k: v for k, v in got.items() if v} }; requants left to "
+          f"PyTorch elementwise: {unfused}", flush=True)
+    check_counts(got, **launches)
+    check_unfused(unfused, unfused_key)
+    if tuple(logits.shape) != (BATCH, 1000) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name}: deploy logits not finite or "
+                             "misshapen")
+    dep_ms = time_cuda(lambda: deploy.deploy_forward(
+        graph, dparams, steps, x, plan=plan, device=DEVICE), iters=5,
+        warmup=1)
+    flags = Q.act_flags(graph, cfg, base=Flags().all_weights(graph))
+    sim = forward(graph, params, qstate, x, flags, device=DEVICE)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(sim).all())
+    rel = logit_rel_mse(torch, logits, sim)
+    agree = float((sim.argmax(-1) == logits.argmax(-1)).double().mean())
+    xg = torch.round(x[:8] * 8) / 8
+    card = deploy.deploy_forward(graph, dparams, steps, xg, plan=plan,
+                                 device=DEVICE)
+    cdp, csteps = to_cpu(torch, deploy, dparams, steps)
+    host = deploy.deploy_forward(graph, cdp, csteps, xg.cpu(), plan=plan,
+                                 device="cpu")
+    c_rel = logit_rel_mse(torch, card.cpu(), host)
+    same = bool(torch.equal(card.cpu().argmax(-1), host.argmax(-1)))
+    jgap = JAX_GAP.get(unfused_key)
+    print(f"  {name}: deploy forward batch {BATCH} {dep_ms:.3f} ms/batch; "
+          f"deploy vs sim logit rel-MSE {rel:.4e} (gate {RELMSE_GATE:g}, "
+          f"margin {RELMSE_GATE / max(rel, 1e-30):.1f}x; the JAX package's "
+          f"own gap on this recipe "
+          + ("not measured" if jgap is None else f"{jgap:.4e}")
+          + f"), top-1 agreement {agree:.4f}, sim finite {finite}; card vs "
+          f"CPU deploy on 8 grid images rel-MSE {c_rel:.4e} (gate "
+          f"{CARD_CPU_GATE:g}), same top-1 {same}", flush=True)
+    if not (finite and rel <= RELMSE_GATE):
+        raise AssertionError(f"{name}: deploy vs sim rel-MSE {rel}, sim "
+                             f"finite {finite}")
+    if not (c_rel <= CARD_CPU_GATE and same):
+        raise AssertionError(f"{name}: card vs CPU deploy rel-MSE {c_rel}, "
+                             f"same top-1 {same}")
+    return dict(plan=plan, launches={k: v for k, v in got.items() if v},
+                unfused=unfused, deploy_ms=dep_ms, rel_mse=rel,
+                top1_agreement=agree, card_cpu_rel_mse=c_rel,
+                jax_gap=jgap)
+
+
+def regnet_phases(torch, gen):
+    """Phases 22-25: RegNetX-600M ImageNet W2A4 at full width in both
+    states, the grouped kernel at its shapes, serving and parity."""
+    from shiftedscalequantization_tpu_torch import deploy
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.graph import Flags, forward
+    from shiftedscalequantization_tpu_torch.ops.cuda import group_conv as gc
+    from shiftedscalequantization_tpu_torch.ops.cuda import int_matmul, \
+        requant
+    t0 = time.perf_counter()
+    serving_env()
+    setups, plans, packed_counts, setup_s = {}, {}, {}, {}
+    for state in ("uniform", "baked"):
+        t = time.perf_counter()
+        setups[state] = serving_setup(torch, gen, "regnetx_600m",
+                                      shifted=state == "baked", host=True)
+        graph, _, _, _, dparams, steps = setups[state]
+        plans[state] = deploy.make_deploy_plan(graph, dparams, steps,
+                                               input_hw=(HW, HW))
+        serving_env(SSQ_PACKED="1")
+        packed_counts[state] = plan_counts(deploy.make_deploy_plan(
+            graph, dparams, steps, input_hw=(HW, HW)))
+        serving_env()
+        torch.cuda.synchronize()
+        setup_s[state] = time.perf_counter() - t
+        got = plan_counts(plans[state])
+        print(f"  regnetx_600m {state}: setup (host-drawn weights, BN fold, "
+              f"MSE scales, calibration on 16 images"
+              + (", fused quantizers hardened" if state == "baked" else "")
+              + f", deploy conversion) {setup_s[state]:.2f} s; plan kinds "
+              f"{got} (JAX {REGNET_KINDS[state]}); with SSQ_PACKED=1 "
+              f"{packed_counts[state]}", flush=True)
+        if got != REGNET_KINDS[state]:
+            raise AssertionError(f"regnetx_600m {state} plan kinds {got}, "
+                                 f"want {REGNET_KINDS[state]}")
+    gshapes = {s: group_conv_shapes(setups[s][0], plans[s])
+               for s in plans}
+    if sum(sum(r.values()) for r in gshapes["uniform"].values()) != 12 \
+            or sum(sum(r.values()) for r in gshapes["baked"].values()) != 16:
+        raise AssertionError(f"grouped shapes {gshapes}")
+    phase("regnet setup", t0)
+
+    t0 = time.perf_counter()
+    g_rows = check_group_conv(torch, gen, gc, requant, deploy,
+                              gshapes["baked"], gshapes["uniform"])
+    check_group_conv_odd(torch, gen, gc, requant, deploy)
+    dense = {s: dense_int_shapes(setups[s][0], plans[s]) for s in plans}
+    for s in plans:
+        check_dense_int(torch, gen, int_matmul, dense[s],
+                        f"the {s} RegNetX-600M plan")
+    phase("group conv kernel", t0)
+
+    t0 = time.perf_counter()
+    x = host_images(torch, BATCH, 2)
+    served = {}
+    for state in ("uniform", "baked"):
+        served[state] = serve_state(
+            torch, deploy, Q, forward, Flags, f"regnetx_600m {state}",
+            setups[state], x, dict(REGNET_LAUNCHES[state],
+                                   packed_quant_matmul=0, stem_fused=0,
+                                   dw_conv3x3_int8=0),
+            f"regnetx_600m_{state}")
+        graph, _, params, qstate, dparams, steps = setups[state]
+        serving_env(SSQ_PACKED="1")
+        pplan = deploy.make_deploy_plan(graph, dparams, steps,
+                                        input_hw=(HW, HW))
+        reset_counts()
+        deploy.deploy_forward(graph, dparams, steps, x, plan=pplan,
+                              device=DEVICE)
+        torch.cuda.synchronize()
+        pk_launch = {k: v for k, v in counts().items()
+                     if v and k != "unfused"}
+        served[state]["packed_ms"] = time_cuda(
+            lambda: deploy.deploy_forward(graph, dparams, steps, x,
+                                          plan=pplan, device=DEVICE),
+            iters=5, warmup=1)
+        served[state]["packed_launches"] = pk_launch
+        serving_env()
+        params_bf16 = {u: {k: v.to(torch.bfloat16) for k, v in p.items()}
+                       for u, p in params.items()}
+        xb = x.to(torch.bfloat16)
+        served[state]["bf16_ms"] = time_cuda(
+            lambda: forward(graph, params_bf16, qstate, xb, Flags(),
+                            device=DEVICE), iters=5, warmup=1)
+        served[state]["plan"] = plan_counts(served[state]["plan"])
+        print(f"  regnetx_600m {state}: under SSQ_PACKED=1 "
+              f"{served[state]['packed_ms']:.3f} ms/batch (launches "
+              f"{pk_launch}); the port's bf16 float forward "
+              f"{served[state]['bf16_ms']:.3f} ms/batch", flush=True)
+    phase("regnet serving + parity", t0)
+    return dict(setup_s=setup_s, plan_kinds={s: plan_counts(p)
+                                             for s, p in plans.items()},
+                packed_plan_kinds=packed_counts, group_rows=g_rows,
+                dense_shapes={s: len(d) for s, d in dense.items()},
+                served=served)
+
+
+def pair_phase(torch, gen):
+    """Phase 26: ResNet-18 ImageNet W4A8 at full width under phase 4's
+    switches: 13 int8_pair units (8-bit unsigned feeds as biased codes,
+    offset 128) on int8_conv; served, gated and timed as RegNet is."""
+    from shiftedscalequantization_tpu_torch import deploy
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.graph import Flags, forward
+    from shiftedscalequantization_tpu_torch.ops.cuda import int_matmul
+    t0 = time.perf_counter()
+    serving_env(SSQ_STEM_KERNEL="1", SSQ_PACKED="1", SSQ_STEM_1PASS="0")
+    setup = serving_setup(torch, gen, "resnet18", bits=(4, 8), host=True)
+    graph, _, _, _, dparams, steps = setup
+    plan = deploy.make_deploy_plan(graph, dparams, steps, input_hw=(HW, HW))
+    got = plan_counts(plan)
+    print(f"  resnet18 W4A8: plan kinds {got}", flush=True)
+    if got != R18_W4A8_KINDS:
+        raise AssertionError(f"resnet18 W4A8 plan kinds {got}, want "
+                             f"{R18_W4A8_KINDS}")
+    check_dense_int(torch, gen, int_matmul, dense_int_shapes(graph, plan),
+                    "ResNet-18 W4A8")
+    x = host_images(torch, BATCH, 2)
+    res = serve_state(torch, deploy, Q, forward, Flags, "resnet18 W4A8",
+                      setup, x, dict(int8_conv=19, stem_fused=1,
+                                     packed_quant_matmul=0,
+                                     int8_group_conv=0), "resnet18_w4a8")
+    res["plan"] = got
+    serving_env()
+    phase("int8_pair", t0)
+    return res
+
+
+def _cli_dict(line):
+    import ast
+    return ast.literal_eval(line[line.index("{"):line.index("}") + 1])
+
+
+def regnet_cli_phases(torch):
+    """Phase 27: the port's CLI on the trained RegNetX-600M, brecq then
+    fused, each in its own process under REGNET_CLI_TIMEOUT_S; then each
+    run's final state served on synth10's 2048 test images. Gates: FP
+    top-1 equals the port CLI's on the CPU (PORT_CLI_FP_TOP1), brecq's
+    final top-1 >= FP - 3 points, and deploy within 0.5 points of the sim
+    top-1 of the same state."""
+    import tempfile
+    import numpy as np
+    from shiftedscalequantization_tpu_torch import cli, deploy
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.utils import checkpoint as ck
+    from shiftedscalequantization_tpu_torch.utils.config import load_args
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory()
+    env = dict(os.environ, PYTHONPATH=root)
+    for k in ("SSQ_STEM_KERNEL", "SSQ_PACKED", "SSQ_STEM_1PASS",
+              "SSQ_DW_KERNEL"):
+        env.pop(k, None)
+    runs = {}
+    common = [os.path.join(root, a) if a.endswith(".npz") else a
+              for a in REGNET_CLI_COMMON]
+    for mode in REGNET_CLI_MODES:
+        argv = common + [
+            "--mode", mode, "--checkpoint_dir", os.path.join(tmp.name, mode),
+            "--log_path", os.path.join(tmp.name, f"{mode}.log")]
+        print(f"  regnet cli {mode}: python -m "
+              f"shiftedscalequantization_tpu_torch.cli {' '.join(argv)}",
+              flush=True)
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "shiftedscalequantization_tpu_torch.cli",
+             *argv], cwd=root, env=env, capture_output=True, text=True,
+            timeout=REGNET_CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"regnet cli {mode}: exit "
+                                 f"{proc.returncode}\n{proc.stdout[-4000:]}"
+                                 f"\n{proc.stderr[-4000:]}")
+        fp, per, final = None, {}, None
+        for line in proc.stdout.splitlines():
+            if line.startswith("accuracy of FP model:"):
+                fp = _cli_dict(line)["top1"]
+            elif line.startswith("accuracy of qnn_hard "):
+                per[line.split()[3].rstrip(":")] = _cli_dict(line)["top1"]
+            elif line.startswith("Final W"):
+                final = _cli_dict(line)["top1"]
+        # the final state served: the CLI's own graph, weights and data
+        args = load_args(argv)
+        graph, raw, cfg = cli.build_everything(args, device=DEVICE)
+        params, _ = Q.prepare_model(graph, raw, cfg, device=DEVICE)
+        qs, done = ck.load_qstate(os.path.join(tmp.name, mode, "QNN_W2_A4"),
+                                  device=DEVICE)
+        _, test = cli.build_data(args)
+        batches = list(test)
+        xs = np.concatenate([b for b, _ in batches])
+        ys = np.concatenate([y for _, y in batches])
+        x = torch.as_tensor(xs, device=DEVICE)
+        serving_env()
+        dp = deploy.build_deploy_params(graph, params, qs, device=DEVICE)
+        steps = deploy.act_steps_from_qstate(graph, qs)
+        plan = deploy.make_deploy_plan(graph, dp, steps,
+                                       input_hw=tuple(xs.shape[1:3]))
+        reset_counts()
+        logits = torch.cat([deploy.deploy_forward(
+            graph, dp, steps, x[i:i + BATCH], plan=plan, device=DEVICE)
+            for i in range(0, x.shape[0], BATCH)])
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in counts().items() if v}
+        launches["unfused"] = launches.pop("unfused", 0)
+        y = torch.as_tensor(ys, device=DEVICE)
+        dep_top1 = float((logits.argmax(-1) == y).double().mean()) * 100
+        runs[mode] = dict(wall_s=wall, fp_top1=fp, per_target=per,
+                          final_top1=final, deploy_top1=dep_top1,
+                          targets=len(done), images=int(x.shape[0]),
+                          plan_kinds=plan_counts(plan),
+                          deploy_launches=launches)
+        print(f"  regnet cli {mode}: {wall:.2f} s; FP top-1 {fp} (the "
+              f"port's CLI on the CPU {PORT_CLI_FP_TOP1}, the JAX CLI on its "
+              f"own synth10 draws {JAX_CLI_FP_TOP1}); top-1 after each "
+              "target "
+              + ", ".join(f"{k.removeprefix('model.')} {v:.2f}"
+                          for k, v in per.items())
+              + f"; final {final}; deploy {dep_top1:.4f} on {x.shape[0]} "
+              f"images (plan {plan_counts(plan)}, launches {launches}); "
+              "ACCURACY_regnet_r4.md (JAX, brecq): FP 99.80, final 98.83, "
+              "deploy 98.78", flush=True)
+        if fp != PORT_CLI_FP_TOP1:
+            raise AssertionError(f"regnet cli {mode}: FP top-1 {fp}, on the "
+                                 f"CPU {PORT_CLI_FP_TOP1}")
+        if final is None or len(per) != len(done) or not done:
+            raise AssertionError(f"regnet cli {mode}: final {final}, "
+                                 f"{len(per)} validations, {len(done)} "
+                                 "targets done")
+        if mode == "brecq" and final < fp - REGNET_FINAL_DROP:
+            raise AssertionError(f"regnet cli brecq: final top-1 {final} < "
+                                 f"FP {fp} - {REGNET_FINAL_DROP}")
+        if abs(dep_top1 - final) > REGNET_DEPLOY_GAP:
+            raise AssertionError(f"regnet cli {mode}: deploy top-1 "
+                                 f"{dep_top1} vs sim {final}")
+    tmp.cleanup()
+    phase("regnet cli", t0)
+    return runs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2026,6 +2707,14 @@ def main():
     # ---- the CLI: fused, brecq + act delta, two-phase ----------------
     cli_res = cli_phases(torch)
 
+    # ---- RegNetX-600M: grouped int8 conv; int8_pair; trained CLI -------
+    rg = regnet_phases(torch, gen)
+    pair = pair_phase(torch, gen)
+    rg_cli = regnet_cli_phases(torch)
+    unfused.update({f"regnetx_600m_{s}": r["unfused"]
+                    for s, r in rg["served"].items()})
+    unfused["resnet18_w4a8"] = pair["unfused"]
+
     src = "shiftedscalequantization_tpu_torch/csrc/"
 
     def per_forward(rows, key):
@@ -2045,6 +2734,7 @@ def main():
     def per_path(rows, key, roles="roles"):
         return sum(r[key] * c for r in rows for c in r[roles].values())
 
+    rg_served, g_rows = rg["served"], rg["group_rows"]
     kernels = [
         {"name": "packed_quant_matmul", "route": "cuda",
          "source": src + "packed_qmm.cu",
@@ -2151,11 +2841,16 @@ def main():
          "replaces":
              "shiftedscalequantization_tpu/ops/pallas/int_matmul.py:24",
          "launches": slaunches["int8_conv"] + launches["int8_conv"]
-         + mlaunches["int8_conv"],
+         + mlaunches["int8_conv"] + sum(
+             r["launches"].get("int8_conv", 0) for r in rg_served.values())
+         + pair["launches"]["int8_conv"],
          "launches_by_path": {
              "resnet18_shifted": slaunches["int8_conv"],
              "resnet18": launches["int8_conv"],
-             "mobilenetv2": mlaunches["int8_conv"]},
+             "mobilenetv2": mlaunches["int8_conv"],
+             **{f"regnetx_600m_{s}": r["launches"].get("int8_conv", 0)
+                for s, r in rg_served.items()},
+             "resnet18_w4a8": pair["launches"]["int8_conv"]},
          "max_abs_err": max(r["err"] for r in conv_rows),
          "ms": path_time(conv_rows),
          "ms_sums_mode": sums_mode(conv_rows),
@@ -2170,6 +2865,32 @@ def main():
                           for r in conv_rows for k in r["roles"]))[1],
          "library_ms": per_path(conv_rows, "library_ms"),
          "library_uniform_s1_ms": per_path(conv_rows, "library_s1_ms",
+                                           "uniform_roles")},
+        # int8_group_conv: one RegNetX-600M baked-path forward (16 grouped
+        # units, two weight groups), the uniform path's (12, S = 1)
+        # beside; its library yardstick is S cuDNN bf16 grouped convs
+        {"name": "int8_group_conv", "route": "cuda",
+         "source": src + "int8_group_conv.cu",
+         "replaces": "shiftedscalequantization_tpu/deploy.py:660 (_int_conv "
+                     "with feature_group_count > 1, left to XLA)",
+         "launches": sum(r["launches"].get("int8_group_conv", 0)
+                         for r in rg_served.values()),
+         "launches_by_path": {
+             f"regnetx_600m_{s}": r["launches"].get("int8_group_conv", 0)
+             for s, r in rg_served.items()},
+         "max_abs_err": max(r["err"] for r in g_rows),
+         "ms": path_time(g_rows),
+         "ms_eager": path_time(g_rows, "eager_ms"),
+         "ms_sums_mode": sums_mode(g_rows),
+         "ms_uniform_s1": path_time(g_rows, "ms_s1", "uniform_roles"),
+         "plain_ms": per_path(g_rows, "plain_ms"),
+         "bound_ms": path_time(g_rows, "bound_ms"),
+         "bound_uniform_s1_ms": path_time(g_rows, "bound_s1_ms",
+                                          "uniform_roles"),
+         "bound_by": max(((r["bound_ms"][k], r["bound_by"][k])
+                          for r in g_rows for k in r["roles"]))[1],
+         "library_ms": per_path(g_rows, "library_ms"),
+         "library_uniform_s1_ms": per_path(g_rows, "library_s1_ms",
                                            "uniform_roles")},
     ]
     print(json.dumps({"packed_shapes": packed_rows, "stem": stem_rows,
@@ -2215,7 +2936,12 @@ def main():
                       "recon_card_cpu_rel_mse": res["rc_rel"],
                       "recon_selection_ratios": dict(zip(
                           map(str, SHIFT_TARGETS), res["roverall"])),
-                      "cli": cli_res}),
+                      "cli": cli_res,
+                      "regnet": {k: v for k, v in rg.items()
+                                 if k != "group_rows"},
+                      "regnet_group_conv_shapes": g_rows,
+                      "resnet18_w4a8": pair,
+                      "regnet_cli": rg_cli}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

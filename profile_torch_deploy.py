@@ -3,11 +3,13 @@
 card: an ImageNet model at W2A4, batch 256, 224x224, the state
 chip_smoke.py builds.
 
-    python3 profile_torch_deploy.py [--arch resnet18|mobilenetv2] [--shifted]
+    python3 profile_torch_deploy.py [--arch resnet18|mobilenetv2|regnetx_600m]
+                                    [--shifted]
 
-``--shifted`` (ResNet-18) serves the model quantized by the method's
-fused shifted-scale quantizers, hardened to the baked scale-table form,
-as chip_smoke.py's method path does.
+``--shifted`` (ResNet-18, RegNetX-600M) serves the model quantized by
+the method's fused shifted-scale quantizers, hardened to the baked
+scale-table form, as chip_smoke.py's method path does. RegNetX-600M takes
+chip_smoke.py's numpy-drawn weights and calibration images.
 
 Prints, for the card named by nvidia-smi (name, power limit):
 - ms/batch (CUDA events) of the deploy forward under three plans, timed in
@@ -17,7 +19,10 @@ Prints, for the card named by nvidia-smi (name, power limit):
   kernels). MobileNetV2: 'serving' (SSQ_DW_KERNEL=1 SSQ_PACKED=1), 'dw
   only' (SSQ_DW_KERNEL=1) and 'no kernels' (the default plan: depthwise
   units on the plain integer route, 1x1 convs on the integer GEMM or the
-  integer route). And the port's float forward in bf16 (no quantizers),
+  integer route). RegNetX-600M: 'serving' (the JAX package's defaults:
+  float_1p stem, int8_bd, grouped units on the grouped kernel) and
+  'packed' (SSQ_PACKED=1). And the port's float forward in bf16 (no
+  quantizers),
   the JAX bench's baseline;
 - the host's time to issue one serving forward (wall clock of the
   deploy_forward call, the card synchronised before and after each, so
@@ -51,11 +56,17 @@ PLANS = {
         "dw only": {"SSQ_DW_KERNEL": "1", "SSQ_PACKED": "0",
                     "SSQ_STEM_1PASS": "1"},
         "no kernels": {"SSQ_DW_KERNEL": "0", "SSQ_PACKED": "0",
-                       "SSQ_STEM_1PASS": "1"}}}
+                       "SSQ_STEM_1PASS": "1"}},
+    "regnetx_600m": {
+        "serving": {"SSQ_STEM_KERNEL": "0", "SSQ_PACKED": "0",
+                    "SSQ_DW_KERNEL": "0", "SSQ_STEM_1PASS": "1"},
+        "packed": {"SSQ_STEM_KERNEL": "0", "SSQ_PACKED": "1",
+                   "SSQ_DW_KERNEL": "0", "SSQ_STEM_1PASS": "1"}}}
 GROUPS = (("int8_conv kernel", ("igemm_kernel",)),
           ("stem kernel", ("stem_fused_kernel",)),
           ("packed kernel", ("packed_qmm_kernel",)),
           ("dw kernel", ("dw_conv3x3_kernel",)),
+          ("group conv kernel", ("group_conv_kernel",)),
           ("integer GEMM", ("gemm", "igemm", "cutlass", "xmma", "imma")),
           ("copies", ("copy", "cat", "Cat", "stack")),
           ("elementwise", ("elementwise", "vectorized", "reduce",
@@ -73,10 +84,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=sorted(PLANS), default="resnet18")
     ap.add_argument("--shifted", action="store_true",
-                    help="ResNet-18 quantized by the method (baked state)")
+                    help="ResNet-18 or RegNetX-600M quantized by the "
+                    "method (baked state)")
     args = ap.parse_args()
-    if args.shifted and args.arch != "resnet18":
-        ap.error("--shifted serves ResNet-18 only")
+    if args.shifted and args.arch == "mobilenetv2":
+        ap.error("--shifted serves ResNet-18 and RegNetX-600M only")
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_deploy: no CUDA device", file=sys.stderr)
@@ -92,7 +104,8 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     graph, _, params, qstate, dparams, steps = \
         chip_smoke.serving_setup(torch, gen, args.arch,
-                                 shifted=args.shifted)
+                                 shifted=args.shifted,
+                                 host=args.arch == "regnetx_600m")
     plan_envs = PLANS[args.arch]
     x = torch.randn((chip_smoke.BATCH, chip_smoke.HW, chip_smoke.HW, 3),
                     generator=gen, device="cuda")

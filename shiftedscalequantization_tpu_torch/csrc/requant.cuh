@@ -42,6 +42,30 @@ __device__ __forceinline__ RequantScalars requant_scalars(const Requant& q) {
                         q.scal[4], q.scal[5], q.scal[6]};
 }
 
+// The epilogue on one value v of output element o (row-major (M, N)
+// index), with its column's terms m1, c1, m2, c2 (read only where the
+// Requant has them): the steps of store_tile_cw, in its order.
+__device__ __forceinline__ float requant_one(float v, const Requant& q,
+                                             const RequantScalars& s,
+                                             float m1, float c1, float m2,
+                                             float c2, size_t o) {
+  if (q.m1) v = __fmul_rn(v, m1);
+  if (q.c1) v = __fadd_rn(v, c1);
+  if (q.q1) v = __fsub_rn(fminf(fmaxf(floorf(v), s.lo1), s.hi1), s.sub1);
+  if (q.res) {
+    v = __fmul_rn(v, m2);
+    if (q.res == 2)
+      v = __fadd_rn(v, __fmul_rn(
+          (float)__ldg(reinterpret_cast<const int8_t*>(q.r) + o), s.mr));
+    else if (q.res == 3)
+      v = __fadd_rn(v, __fmul_rn(
+          __ldg(reinterpret_cast<const float*>(q.r) + o), s.mr));
+    v = __fsub_rn(fminf(fmaxf(floorf(__fadd_rn(v, c2)), s.lo2), s.hi2),
+                  s.sub2);
+  }
+  return v;
+}
+
 enum StoreMode { STORE_F32 = 0, STORE_I32 = 1, STORE_CODES = 2 };
 
 // The block's columns n0.. of m1, c1, m2 and c2 into shared memory,

@@ -16,22 +16,28 @@ per-(candidate, OC) scale table (``group_scales``):
 ``out = 0 + sum_s conv_int(x, w_groups[s]) * (group_scales[s] * dx)``.
 
 Plan kinds ported: ``stem_fused``, ``packed`` and ``dw_int8``
-(hand-written kernels in ``ops/cuda``), ``int8`` and ``bf16_codes``,
-``float`` and ``float_1p``. ``int8`` and ``bf16_codes`` give the same
-integers (the JAX bf16 sums are exact below 2^24), and both run one exact
-integer route here: a dense conv or linear unit goes through
-``ops/cuda/int_matmul.int8_conv`` (the implicit-GEMM kernel on the card,
-its plain version on the CPU), a depthwise conv through nine shifted int32
-multiply-adds. No cuDNN float conv touches act codes, since TF32 and
-Winograd would flip them. An ``int8_conv`` or ``packed`` unit hands its
-launch to its consumer (``_Deferred``): the requant onto an int8 or
-biased site under none, relu or relu6 (and a residual block's requant,
-for its last unit) runs in the kernel's epilogue, with the terms
-``quantize_out`` builds; ``quantize_out.unfused`` counts the requants
-left to PyTorch elementwise ops. The plan still names the kinds the JAX package
-would pick for other graphs; ``int8_bd``, ``int8_pair``, ``float_s2d``,
-other grouped integer convs and pair transport raise NotImplementedError
-when reached. A plan also keeps, under ``__kernel_consts__``, the launch
+(hand-written kernels in ``ops/cuda``), ``int8``, ``bf16_codes``,
+``int8_bd`` and ``int8_pair``, ``float`` and ``float_1p``. The four
+integer kinds give the same integers (the JAX bf16 sums are exact below
+2^24), and all run one exact integer route here: a dense conv or linear
+unit goes through ``ops/cuda/int_matmul.int8_conv`` (the implicit-GEMM
+kernel on the card, its plain version on the CPU), a grouped conv through
+``ops/cuda/group_conv.int8_group_conv`` (likewise), a depthwise conv
+through nine shifted int32 multiply-adds. ``int8_bd`` runs a narrow
+grouped conv on ``int8_conv`` with its dense block-diagonal operand
+(``DeployUnit.w_bd``); ``int8_pair`` (8-bit unsigned feeds) runs the
+biased codes with offset 128, which computes the JAX package's
+nibble-split sum ``16*hi + lo`` in one launch. No cuDNN float conv
+touches act codes, since TF32 and Winograd would flip them. An
+``int8_conv``, ``int8_group_conv`` or ``packed`` unit hands its launch to
+its consumer (``_Deferred``): the requant onto an int8 or biased site
+under none, relu or relu6 (and a residual block's requant, for its last
+unit) runs in the kernel's epilogue, with the terms ``quantize_out``
+builds; ``quantize_out.unfused`` counts the requants left to PyTorch
+elementwise ops. The plan still names the kinds the JAX package would
+pick for other graphs; ``float_s2d`` and pair transport raise
+NotImplementedError when reached. A plan also keeps, under
+``__kernel_consts__``, the launch
 constants of its ``stem_fused`` and ``dw_int8`` units (weight layouts,
 folded scales, the grid's reciprocal), built once when the plan is made,
 so a forward launches those units' kernels and nothing else for them.
@@ -53,12 +59,13 @@ from .graph import BlockSpec, Graph, OpSpec, UnitQuant, UnitSpec, \
     _activation, _fp32, conv2d, global_avg_pool, iter_units, max_pool
 from .ops import wquant as W
 from .ops.cuda.depthwise import dw_conv3x3_int8_prepared, prepare_dw
+from .ops.cuda.group_conv import int8_group_conv
 from .ops.cuda.int_matmul import int8_conv
 from .ops.cuda.packed import pack_codes, packed_quant_matmul
 from .ops.cuda.requant import Requant, clip as _clip, requant_plain
 from .ops.cuda.stem import prepare_stem, stem_fused_prepared
 
-UNPORTED_KINDS = ("int8_bd", "int8_pair", "float_s2d")
+UNPORTED_KINDS = ("float_s2d",)
 # units narrower than this take bf16_codes over int8 (the JAX package's
 # SSQ_THIN_CHANNELS default; the kinds give the same integers here)
 THIN_CHANNELS = 128
@@ -85,6 +92,10 @@ class DeployUnit:
     # its (S, OC) int32 sums for offset (biased) feeds
     w_mat: Optional[torch.Tensor] = None
     w_sum: Optional[torch.Tensor] = None
+    # narrow grouped conv (1 < groups < in_ch <= 128, not baked): the
+    # dense block-diagonal codes as int8_conv's (1, OC, KH*KW*IC) operand,
+    # for the int8_bd kind; its row sums are w_sum's
+    w_bd: Optional[torch.Tensor] = None
 
 
 def _hard_weight_codes(wq, w):
@@ -123,6 +134,18 @@ def _gemm_operand(w_int: torch.Tensor) -> torch.Tensor:
     if w_int.ndim == 5:
         w_int = w_int.permute(0, 1, 3, 4, 2)
     return w_int.reshape(w_int.shape[0], w_int.shape[1], -1).contiguous()
+
+
+def _block_diagonal(w_int: torch.Tensor, groups: int) -> torch.Tensor:
+    """Grouped OIHW codes (OC, IC/G, KH, KW) -> dense (OC, IC, KH, KW),
+    zero outside each conv group's block."""
+    oc, cg = w_int.shape[:2]
+    ocg = oc // groups
+    dense = w_int.new_zeros((oc, cg * groups) + tuple(w_int.shape[2:]))
+    for g in range(groups):
+        dense[g * ocg:(g + 1) * ocg, g * cg:(g + 1) * cg] = \
+            w_int[g * ocg:(g + 1) * ocg]
+    return dense
 
 
 def _st_per_weight(wq, w: torch.Tensor) -> torch.Tensor:
@@ -189,6 +212,9 @@ def build_deploy_params(graph: Graph, params, qstate,
             du = DeployUnit(w_int=w_int, w_fp=None, scale=scale, bias=bias,
                             w_mat=w_mat,
                             w_sum=w_mat.sum(dim=2, dtype=torch.int32))
+            if u.kind == "conv" and 1 < u.groups < u.in_ch \
+                    and u.in_ch <= 128:
+                du.w_bd = _gemm_operand(_block_diagonal(w_int, u.groups)[None])
             n_bits_w = uq.wq.qp.n_bits
             flat_1x1 = (u.kind == "linear"
                         or (u.kind == "conv" and u.kernel == (1, 1)
@@ -397,8 +423,7 @@ def make_deploy_plan(graph: Graph, dparams: dict, act_steps: dict,
                 and site in int8_sites):
             # the JAX package densifies narrow grouped convs (int8_bd),
             # but not baked ones
-            if d.w_int is not None and u.in_ch <= 128 \
-                    and d.w_groups is None:
+            if d.w_bd is not None and d.w_groups is None:
                 plan[u.name] = ("int8_bd", site)
                 continue
             if d.w_int is not None and min(unit_hw[u.name]) >= 14:
@@ -526,12 +551,15 @@ def _dw_int_acc(spec: UnitSpec, w_int, xi, offset: int):
     return acc
 
 
-def _int_unit(spec: UnitSpec, d: DeployUnit, xi, offset: int, delta):
+def _int_unit(spec: UnitSpec, d: DeployUnit, xi, offset: int, delta,
+              block_diagonal: bool = False):
     """Exact integer conv/linear of int8 feed codes ``xi`` whose centered
     value is ``xi + offset``, with its epilogue pending: padding carries
     -offset (centered zero) and the offset's share comes back as offset *
     sum(w). A baked unit sums its groups through the scale table. Dense
-    units return the int8_conv launch deferred to their consumer."""
+    and grouped units return the int8_conv / int8_group_conv launch
+    deferred to their consumer; ``block_diagonal`` runs a grouped unit
+    dense on its block-diagonal operand (int8_bd)."""
     if spec.kind == "conv" and spec.groups == spec.in_ch == spec.out_ch \
             and spec.groups > 1:
         if d.w_groups is None:
@@ -542,11 +570,14 @@ def _int_unit(spec: UnitSpec, d: DeployUnit, xi, offset: int, delta):
             acc = _dw_int_acc(spec, d.w_groups[s], xi, offset)
             out = out + acc.to(torch.float32) * (d.group_scales[s] * delta)
         return _Pending(out, None, d.bias)
-    if spec.kind == "conv" and spec.groups != 1:
-        raise NotImplementedError("grouped int8 conv is not ported")
+    w_mat, conv, extra = d.w_mat, int8_conv, {}
     if spec.kind == "conv":
         geom = (spec.kernel, spec.stride, spec.padding)
         x4 = xi
+        if block_diagonal:
+            w_mat = d.w_bd
+        elif spec.groups != 1:
+            conv, extra = int8_group_conv, {"conv_groups": spec.groups}
     else:
         geom = ((1, 1), (1, 1), (0, 0))
         x4 = xi.reshape(xi.shape[0], 1, 1, xi.shape[1])
@@ -554,9 +585,9 @@ def _int_unit(spec: UnitSpec, d: DeployUnit, xi, offset: int, delta):
 
     def launch(rq):
         # int32 sums, the f32 scale-table sum (baked unit), or int8 codes
-        out = int8_conv(x4.contiguous(), d.w_mat, *geom, pad_value=-offset,
-                        group_scales=d.group_scales, act_delta=delta,
-                        acc_offset=acc_offset, requant=rq)
+        out = conv(x4.contiguous(), w_mat, *geom, pad_value=-offset,
+                   group_scales=d.group_scales, act_delta=delta,
+                   acc_offset=acc_offset, requant=rq, **extra)
         if rq is None and d.w_groups is None:
             out = out.to(torch.float32)
         if spec.kind != "conv":
@@ -857,10 +888,13 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
                 xin, d.w_packed, d.w_pack_zp, d.scale.contiguous(),
                 d.bias.contiguous(), dv, zpv, d.w_pack_bits, n_bits,
                 stride=stride, requant=rq), pending=False)
-        if kind_plan in ("int8", "bf16_codes"):
+        if kind_plan in ("int8", "bf16_codes", "int8_bd", "int8_pair"):
+            # int8_pair's 8-bit unsigned feed arrives as biased codes with
+            # offset 128: one launch computes its 16*hi + lo sum
             delta, zp, n_bits = act_steps[feed_site]
             xi, offset = int_feed(v, delta, zp, n_bits)
-            return _int_unit(spec, d, xi, offset, delta)
+            return _int_unit(spec, d, xi, offset, delta,
+                             block_diagonal=kind_plan == "int8_bd")
         # float / float_1p: f32 conv with integer-code weights, TF32 off;
         # float_1p rounds the activation to bf16 first, as the JAX single
         # bf16 pass does (the weight codes are bf16-exact)

@@ -1,9 +1,9 @@
 """Model registry (PyTorch port of
-``shiftedscalequantization_tpu/models/zoo.py``). ResNet and MobileNetV2 so
-far; the other families come with their deploy plan kinds."""
+``shiftedscalequantization_tpu/models/zoo.py``): ResNet, MobileNetV2 and
+RegNetX. MNASNet is not ported yet (ROADMAP.md, queue 1, item 7)."""
 from __future__ import annotations
 
-from . import mobilenetv2, resnet
+from . import mobilenetv2, regnet, resnet
 from .resnet import init_params  # noqa: F401
 
 
@@ -21,8 +21,16 @@ def build(arch: str, num_classes: int | None = None,
     if arch == "mobilenetv2":
         g = mobilenetv2.build_mobilenetv2(num_classes=nc, variant=variant)
         return g, mobilenetv2.torch_key_map
-    raise NotImplementedError(f"arch {arch!r} is not ported yet")
+    if arch.startswith("regnetx"):
+        g = regnet.build_regnetx(arch, num_classes=nc, variant=variant)
+        return g, regnet.torch_key_map
+    if arch == "mnasnet":
+        raise NotImplementedError(
+            "arch 'mnasnet' is not ported yet (ROADMAP.md, queue 1, item 7)")
+    raise ValueError(f"unknown arch {arch}")
 
 
 ARCHS = ["resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
-         "mobilenetv2"]
+         "mobilenetv2", "regnetx_200m", "regnetx_400m", "regnetx_600m",
+         "regnetx_800m", "regnetx_1600m", "regnetx_3200m", "regnetx_4000m",
+         "regnetx_6400m"]

@@ -132,31 +132,74 @@ def im2col(x, kernel, stride, padding, pad_value: int):
         (b, ho, wo)
 
 
-def int8_conv_plain(codes, w_mat, kernel, stride, padding, pad_value=0,
-                    group_scales=None, act_delta=None, acc_offset=None,
-                    requant=None):
-    """Plain PyTorch version: im2col, one exact integer product per weight
-    group, ``acc_offset`` added; int32 sums (S = 1, no table), else the
-    f32 scale-table sum ``0 + sum_s float(acc_s) * (table[s] * delta)``;
-    with ``requant``, that value (the sums as f32 without a table) through
-    ``requant.requant_plain``: int8 codes."""
-    a, (b, ho, wo) = im2col(codes, kernel, stride, padding, pad_value)
-    a = a.to(torch.float64)
-    delta = None if group_scales is None \
-        else _scalar(act_delta, codes.device)
+def plain_epilogue(acc_of, s_n, out_shape, device, group_scales=None,
+                   act_delta=None, acc_offset=None, requant=None):
+    """The conv plain versions' epilogue on weight group s's exact int32
+    sums ``acc_of(s)`` (M, N): ``acc_offset`` added; the int32 sums (S =
+    1, no table), else the f32 scale-table sum ``0 + sum_s float(acc_s) *
+    (table[s] * delta)``; with ``requant``, that value (the sums as f32
+    without a table) through ``requant.requant_plain``: int8 codes."""
+    delta = None if group_scales is None else _scalar(act_delta, device)
     out = 0.0
-    for s in range(w_mat.shape[0]):
-        acc = (a @ w_mat[s].to(torch.float64).T).to(torch.int32)
+    for s in range(s_n):
+        acc = acc_of(s)
         if acc_offset is not None:
             acc = acc + acc_offset[s]
         if group_scales is None:
             out = acc
             break
         out = out + acc.to(torch.float32) * (group_scales[s] * delta)
-    out = out.reshape(b, ho, wo, -1)
+    out = out.reshape(out_shape)
     if requant is not None:
         return requant_plain(out.to(torch.float32), requant)
     return out
+
+
+def int8_conv_plain(codes, w_mat, kernel, stride, padding, pad_value=0,
+                    group_scales=None, act_delta=None, acc_offset=None,
+                    requant=None):
+    """Plain PyTorch version: im2col, one exact integer product per weight
+    group (float64), then ``plain_epilogue``."""
+    a, (b, ho, wo) = im2col(codes, kernel, stride, padding, pad_value)
+    a = a.to(torch.float64)
+    return plain_epilogue(
+        lambda s: (a @ w_mat[s].to(torch.float64).T).to(torch.int32),
+        w_mat.shape[0], (b, ho, wo, -1), codes.device, group_scales,
+        act_delta, acc_offset, requant)
+
+
+def conv_launch_outputs(codes, w_mat, ho, wo, pad_value, group_scales,
+                        act_delta, acc_offset, requant):
+    """The checks the conv kernels' wrappers make before a launch, and
+    what the launch writes to: (out, table, delta, requant args, tensors
+    to keep alive until the launch is queued)."""
+    dev = codes.device
+    b, h, w, c = codes.shape
+    s_n, n, k = w_mat.shape
+    if not 1 <= s_n <= MAX_GROUPS or (group_scales is None and s_n != 1):
+        raise ValueError(f"kernel takes 1..{MAX_GROUPS} weight groups, and "
+                         f"one without a scale table; got S={s_n}")
+    if not -128 <= int(pad_value) <= 127:
+        raise ValueError(f"pad_value {pad_value} is not an int8 code")
+    if ho <= 0 or wo <= 0 or b * ho * wo >= 2 ** 31 \
+            or codes.numel() >= 2 ** 31 or w_mat.numel() >= 2 ** 31:
+        raise ValueError(f"output {b}x{ho}x{wo} is empty or too large")
+    _check("codes", codes, dev, torch.int8, (b, h, w, c))
+    _check("w_mat", w_mat, dev, torch.int8, (s_n, n, k))
+    if acc_offset is not None:
+        _check("acc_offset", acc_offset, dev, torch.int32, (s_n, n))
+    if group_scales is None:
+        table = delta = None
+        dtype = torch.int32
+    else:
+        _check("group_scales", group_scales, dev, torch.float32, (s_n, n))
+        table, delta = group_scales, _scalar(act_delta, dev)
+        dtype = torch.float32
+    out = torch.empty((b, ho, wo, n), device=dev,
+                      dtype=dtype if requant is None else torch.int8)
+    rq, keep = (None, None) if requant is None \
+        else device_args(requant, n, out.shape, dev)
+    return out, table, delta, rq, keep
 
 
 def int8_conv(codes, w_mat, kernel, stride, padding, pad_value=0,
@@ -178,7 +221,6 @@ def int8_conv(codes, w_mat, kernel, stride, padding, pad_value=0,
         return int8_conv_plain(codes, w_mat, kernel, stride, padding,
                                pad_value, group_scales, act_delta,
                                acc_offset, requant)
-    dev = codes.device
     if codes.ndim != 4 or w_mat.ndim != 3:
         raise ValueError(f"codes {tuple(codes.shape)} / w_mat "
                          f"{tuple(w_mat.shape)}: want (B, H, W, C) and "
@@ -189,30 +231,9 @@ def int8_conv(codes, w_mat, kernel, stride, padding, pad_value=0,
     ho, wo = _out_hw(h, w, kernel, stride, padding)
     if k != kh * kw * c:
         raise ValueError(f"w_mat K={k} is not KH*KW*C={kh * kw * c}")
-    if not 1 <= s_n <= MAX_GROUPS or (group_scales is None and s_n != 1):
-        raise ValueError(f"kernel takes 1..{MAX_GROUPS} weight groups, and "
-                         f"one without a scale table; got S={s_n}")
-    if not -128 <= int(pad_value) <= 127:
-        raise ValueError(f"pad_value {pad_value} is not an int8 code")
-    if ho <= 0 or wo <= 0 or b * ho * wo >= 2 ** 31 \
-            or codes.numel() >= 2 ** 31:
-        raise ValueError(f"output {b}x{ho}x{wo} is empty or too large")
-    _check("codes", codes, dev, torch.int8, (b, h, w, c))
-    _check("w_mat", w_mat, dev, torch.int8, (s_n, n, k))
-    if acc_offset is not None:
-        _check("acc_offset", acc_offset, dev, torch.int32, (s_n, n))
-    if group_scales is None:
-        table = delta = None
-        dtype = torch.int32
-    else:
-        _check("group_scales", group_scales, dev, torch.float32, (s_n, n))
-        table, delta = group_scales, _scalar(act_delta, dev)
-        dtype = torch.float32
-    out = torch.empty((b, ho, wo, n), device=dev,
-                      dtype=dtype if requant is None else torch.int8)
-    rq = None
-    if requant is not None:
-        rq, keep = device_args(requant, n, out.shape, dev)  # noqa: F841
+    out, table, delta, rq, keep = conv_launch_outputs(  # noqa: F841
+        codes, w_mat, ho, wo, pad_value, group_scales, act_delta,
+        acc_offset, requant)
     if s_n == 3:
         # the kernel's wgmma widths take 1, 2 or 4 groups: a zero fourth
         # group adds float(0) * (0 * delta), so v + 0.0, to every sum

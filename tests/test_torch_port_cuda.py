@@ -527,6 +527,71 @@ def test_int8_conv_refuses_what_it_cannot_take(card):
     assert TI.int8_conv.launches == before
 
 
+@pytest.mark.parametrize("b,h,c,n,groups,kern,stride,pad,s,offset", [
+    (4, 14, 240, 240, 10, 3, 1, 1, 1, 0),      # RegNetX-600M s3, Cg = 24
+    (2, 15, 96, 96, 4, 3, 2, 1, 2, 128),       # stride 2, biased feed
+    (2, 9, 24, 24, 3, 3, 1, 1, 3, 0),          # Cg = 8, S = 3
+    (1, 9, 15, 15, 3, 3, 2, 1, 4, 9),          # odd Cg = OC/G = 5
+    (2, 7, 32, 48, 2, 3, 1, 1, 1, 0),          # OC/G = 24 > Cg = 16
+    (2, 6, 16, 24, 2, 3, 1, 1, 2, 0),          # OC/G = 12
+    (2, 6, 96, 80, 2, 1, 1, 0, 1, 0)])         # 1x1, OC/G = 40: 2 tiles
+def test_int8_group_conv_kernel_matches_plain(card, b, h, c, n, groups,
+                                              kern, stride, pad, s, offset):
+    """The grouped kernel against its plain version: int32 sums (S = 1),
+    the scale-table sum and a unit-site and a block requant with an int8
+    residual, bit-exact, one launch each; with pad values of a biased
+    feed, group widths 24, 16, 8 and odd, and OC/G of 5, 12, 24, 40."""
+    from shiftedscalequantization_tpu_torch.ops.cuda import group_conv as TG
+    g = torch.Generator(device=card).manual_seed(7)
+    span = 128 if offset else 8
+    x = torch.randint(-span, span, (b, h, h, c), generator=g, device=card,
+                      dtype=torch.int8)
+    w = torch.randint(-2, 3, (s, n, kern * kern * (c // groups)),
+                      generator=g, device=card, dtype=torch.int8)
+    off = offset * w.sum(dim=2, dtype=torch.int32) if offset else None
+    geom = ((kern, kern), (stride, stride), (pad, pad))
+    table = torch.rand((s, n), generator=g, device=card) * 0.02 + 1e-3
+    delta = torch.tensor(0.37, device=card)
+    modes = [dict(group_scales=table, act_delta=delta)]
+    if s == 1:
+        modes.append({})
+    ho = (h + 2 * pad - kern) // stride + 1
+    for rq in _requants(g, card, n, (b, ho, ho, n)).values():
+        modes.append(dict(group_scales=table, act_delta=delta, requant=rq))
+    for kw in modes:
+        before = TG.int8_group_conv.launches
+        got = TG.int8_group_conv(x, w, *geom, groups, pad_value=-offset,
+                                 acc_offset=off, **kw)
+        torch.cuda.synchronize()
+        assert TG.int8_group_conv.launches == before + 1
+        want = TG.int8_group_conv_plain(x, w, *geom, groups,
+                                        pad_value=-offset, acc_offset=off,
+                                        **kw)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_int8_group_conv_refuses_what_it_cannot_take(card):
+    """On a CUDA tensor the wrapper launches or raises: groups that do not
+    divide the channels, a weight of the wrong K, too many weight
+    groups."""
+    from shiftedscalequantization_tpu_torch.ops.cuda import group_conv as TG
+    x = torch.zeros((2, 8, 8, 24), dtype=torch.int8, device=card)
+    geom = ((3, 3), (1, 1), (1, 1))
+    before = TG.int8_group_conv.launches
+    with pytest.raises(ValueError, match="conv groups"):
+        TG.int8_group_conv(x, torch.zeros((1, 24, 45), dtype=torch.int8,
+                                          device=card), *geom, 5)
+    with pytest.raises(ValueError, match="KH\\*KW\\*Cg"):
+        TG.int8_group_conv(x, torch.zeros((1, 24, 70), dtype=torch.int8,
+                                          device=card), *geom, 3)
+    with pytest.raises(ValueError, match="weight groups"):
+        TG.int8_group_conv(x, torch.zeros((5, 24, 72), dtype=torch.int8,
+                                          device=card), *geom, 3,
+                           group_scales=torch.ones((5, 24), device=card),
+                           act_delta=1.0)
+    assert TG.int8_group_conv.launches == before
+
+
 def test_shifted_scale_deploy_on_card(card, monkeypatch):
     """The method path at small size: CIFAR ResNet-18 W2A4, fused
     shifted-scale quantizers with targets {1/2, 1} (logits perturbed)

@@ -148,7 +148,9 @@ non-zero exit and no result line:
    against the sums launch followed by quantize_out), timed by
    CUDA-graph replay (eager beside) next to its bound and S cuDNN bf16
    grouped convs on the same codes; then at GROUP_ODD_SHAPES (Cg 8, 5,
-   12, OC/G not a multiple of 8, S = 3) at batch 32; and int8_conv
+   12, 24 in 8-byte runs, 40, 48, 56; OC/G not a multiple of 8; S = 3,
+   4; tiles of several images with the last short, row bands that do not
+   divide the image, batch 1 and 32, 15x15 at stride 2); and int8_conv
    against its plain version at every dense integer shape of both
    plans (int8_bd units on their block-diagonal operand);
 24-25. regnet serving + parity: one deploy forward per state at batch
@@ -237,14 +239,29 @@ JAX_GAP = {"regnetx_600m_uniform": 5.657550433364477e-04,
 # unsigned feeds of the 13 wide units are int8_pair
 R18_W4A8_KINDS = {"stem_fused": 1, "int8_pair": 13, "bf16_codes": 6,
                   "float": 1}
-# grouped shapes outside RegNetX-600M's, checked at batch 32: (H, W, C,
-# N, conv groups, kernel, stride, padding, weight groups S): regnetx_200m's
-# Cg = 8 at stride 2, an odd Cg = OC/G = 5, OC/G = 18 with Cg = 12, and
-# S = 3 at Cg = 24
-GROUP_ODD_SHAPES = [(56, 56, 24, 24, 3, 3, 2, 1, 2),
-                    (15, 15, 15, 15, 3, 3, 2, 1, 3),
-                    (28, 28, 48, 72, 4, 3, 1, 1, 2),
-                    (14, 14, 240, 240, 10, 3, 1, 1, 3)]
+# grouped shapes outside RegNetX-600M's plans at batch 256, and the edges
+# of the kernel's tiling: (batch, H, W, C, N, conv groups, kernel, stride,
+# padding, weight groups S): regnetx_200m's Cg = 8 at stride 2, an odd Cg
+# = OC/G = 5, OC/G = 18 with Cg = 12, S = 3 and S = 4 at Cg = 24; tiles of
+# three 7x7 images with the last one short (regnetx_200m); batch 1 (bands
+# that do not divide a 7x7 image; stride 2); 15x15 at stride 2; bands of 5
+# rows of 14; the group widths 40, 48 and 56 (regnetx_4000m, 3200m,
+# 6400m); Cg = 24 in an odd number of groups, whose channel runs are only
+# 8-byte aligned (regnetx_1600m)
+GROUP_ODD_SHAPES = [(32, 56, 56, 24, 24, 3, 3, 2, 1, 2),
+                    (32, 15, 15, 15, 15, 3, 3, 2, 1, 3),
+                    (32, 28, 28, 48, 72, 4, 3, 1, 1, 2),
+                    (32, 14, 14, 240, 240, 10, 3, 1, 1, 3),
+                    (32, 14, 14, 240, 240, 10, 3, 1, 1, 4),
+                    (32, 7, 7, 368, 368, 46, 3, 1, 1, 2),
+                    (1, 7, 7, 528, 528, 22, 3, 1, 1, 2),
+                    (1, 56, 56, 96, 96, 4, 3, 2, 1, 2),
+                    (32, 15, 15, 96, 96, 4, 3, 2, 1, 2),
+                    (32, 28, 28, 240, 240, 10, 3, 2, 1, 2),
+                    (32, 14, 14, 560, 560, 14, 3, 1, 1, 2),
+                    (32, 14, 14, 432, 432, 9, 3, 1, 1, 2),
+                    (32, 14, 14, 784, 784, 14, 3, 1, 1, 2),
+                    (32, 28, 28, 168, 168, 7, 3, 1, 1, 2)]
 # phase 27: the port's CLI on the trained RegNetX-600M (CIFAR variant) on
 # synth10, the flags of ACCURACY_regnet_r4.md (FP 99.80, brecq final
 # 98.83, integer deploy 98.78 for the JAX package on a TPU); each run in a
@@ -2023,13 +2040,13 @@ def check_group_conv(torch, gen, gc, requant, deploy, shapes, uniform_shapes):
 
 
 def check_group_conv_odd(torch, gen, gc, requant, deploy):
-    """The grouped kernel at GROUP_ODD_SHAPES, batch 32: torch.equal with
-    the plain version in sums mode (int32 at S = 1, the scale-table sum at
-    the shape's S) and every requant variant, offsets 0 and 128."""
+    """The grouped kernel at GROUP_ODD_SHAPES: torch.equal with the plain
+    version in sums mode (int32 at S = 1, the scale-table sum at the
+    shape's S) and every requant variant, offsets 0 and 128."""
     ctx = requant_context(torch, deploy, DEVICE)
-    for h, w, c, n, g, k, st, p, s_top in GROUP_ODD_SHAPES:
+    for b, h, w, c, n, g, k, st, p, s_top in GROUP_ODD_SHAPES:
         geom = ((k, k), (st, st), (p, p))
-        x4, x8, w1, ws, kk = _group_case(torch, gen, 32, h, w, c, n, g, k,
+        x4, x8, w1, ws, kk = _group_case(torch, gen, b, h, w, c, n, g, k,
                                          s_top)
         label = f"int8_group_conv {h}x{w}x{c}->{n} G{g} k{k}/s{st}"
         delta = torch.tensor(0.37, device=DEVICE)
@@ -2061,7 +2078,11 @@ def check_group_conv_odd(torch, gen, gc, requant, deploy):
                     lambda rq: gc.int8_group_conv(x, wm, *geom, g,
                                                   requant=rq, **kw),
                     want.float(), pend, res, ctx)
-        print(f"  {label} batch 32 (Cg {c // g}, OC/G {n // g}): sums and "
+        plan = gc.group_conv_launch_plan(b, h, w, c, n, g, (k, k), (st, st),
+                                         (p, p), s_top)
+        print(f"  {label} batch {b} (Cg {c // g}, OC/G {n // g}; tiles of "
+              f"{plan.ni} images x {plan.th} rows, {plan.gb} groups a "
+              f"block, {plan.cw}-byte copies): sums and "
               f"{len(REQUANT_VARIANTS)} requant variants bit-exact at S = 1, "
               f"{s_top} and offsets 0, 128", flush=True)
 

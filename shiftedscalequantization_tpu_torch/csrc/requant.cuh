@@ -1,9 +1,9 @@
 // The requant epilogue shared by the integer GEMM kernels (int_matmul.cu's
-// int8_conv, packed_qmm.cu): the deploy path's quantize_out evaluated on
-// the kernel's f32 value v of output (row m, column n), in the order the
-// PyTorch route evaluates it, every step rounded on its own (__fmul_rn,
-// __fadd_rn: no FMA contraction), so the codes are bit-for-bit those of
-// ops/cuda/requant.requant_plain:
+// int8_conv, packed_qmm.cu, int8_group_conv.cu): the deploy path's
+// quantize_out evaluated on the kernel's f32 value v of output (row m,
+// column n), in the order the PyTorch route evaluates it, every step
+// rounded on its own (__fmul_rn, __fadd_rn: no FMA contraction), so the
+// codes are bit-for-bit those of ops/cuda/requant.requant_plain:
 //
 //   u = v [* m1[n]] [+ c1[n]]
 //   q1:  u = clip(floor(u), lo1, hi1) - sub1        codes on the unit's site
@@ -14,9 +14,10 @@
 // The host builds every term with the torch expressions quantize_out uses
 // (ops/cuda/requant.py), on the device, so no launch waits for the card.
 //
-// Both kernels stage their output tile through shared memory: pass 1 puts
+// The kernels stage their output tile through shared memory: pass 1 puts
 // each accumulator's f32 value (or int32 sums) in a padded row-major tile,
-// store_tile (pass 2) walks it CW consecutive columns at a time, so the
+// pass 2 walks it CW consecutive columns at a time (store_tile, or the
+// grouped conv's own walk over its rows, both through store_chunk), so the
 // per-column terms, the residual and the output move in 16-byte pieces.
 #pragma once
 #include <stdint.h>
@@ -40,30 +41,6 @@ struct RequantScalars {
 __device__ __forceinline__ RequantScalars requant_scalars(const Requant& q) {
   return RequantScalars{q.scal[0], q.scal[1], q.scal[2], q.scal[3],
                         q.scal[4], q.scal[5], q.scal[6]};
-}
-
-// The epilogue on one value v of output element o (row-major (M, N)
-// index), with its column's terms m1, c1, m2, c2 (read only where the
-// Requant has them): the steps of store_tile_cw, in its order.
-__device__ __forceinline__ float requant_one(float v, const Requant& q,
-                                             const RequantScalars& s,
-                                             float m1, float c1, float m2,
-                                             float c2, size_t o) {
-  if (q.m1) v = __fmul_rn(v, m1);
-  if (q.c1) v = __fadd_rn(v, c1);
-  if (q.q1) v = __fsub_rn(fminf(fmaxf(floorf(v), s.lo1), s.hi1), s.sub1);
-  if (q.res) {
-    v = __fmul_rn(v, m2);
-    if (q.res == 2)
-      v = __fadd_rn(v, __fmul_rn(
-          (float)__ldg(reinterpret_cast<const int8_t*>(q.r) + o), s.mr));
-    else if (q.res == 3)
-      v = __fadd_rn(v, __fmul_rn(
-          __ldg(reinterpret_cast<const float*>(q.r) + o), s.mr));
-    v = __fsub_rn(fminf(fmaxf(floorf(__fadd_rn(v, c2)), s.lo2), s.hi2),
-                  s.sub2);
-  }
-  return v;
 }
 
 enum StoreMode { STORE_F32 = 0, STORE_I32 = 1, STORE_CODES = 2 };
@@ -99,6 +76,102 @@ __device__ __forceinline__ void load_cols(float (&d)[CW], const float* p) {
   }
 }
 
+// CW consecutive outputs at out + o (row-major (M, N) index o), columns
+// nn.. of the requant terms cols (cols[t * cstride + nn], t = m1, c1, m2,
+// c2; load_requant_cols): v holds their f32 values (int32 bits for
+// STORE_I32), stored as they are or through the requant as int8 codes, in
+// 16-byte pieces where CW allows (o a multiple of CW, the residual and
+// out 16-byte aligned).
+template <int CW>
+__device__ __forceinline__ void store_chunk(float (&v)[CW], int mode,
+                                            const Requant& q,
+                                            const RequantScalars& s,
+                                            const float* cols, int cstride,
+                                            int nn, size_t o, void* out) {
+  if (mode == STORE_F32 || mode == STORE_I32) {
+    float* dst = reinterpret_cast<float*>(out) + o;     // int32 bits as is
+    if (CW % 4 == 0) {
+#pragma unroll
+      for (int j = 0; j < CW; j += 4)
+        *reinterpret_cast<float4*>(dst + j) =
+            make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < CW; ++j) dst[j] = v[j];
+    }
+    return;
+  }
+  float t[CW];
+  if (q.m1) {
+    load_cols<CW, false>(t, cols + nn);
+#pragma unroll
+    for (int j = 0; j < CW; ++j) v[j] = __fmul_rn(v[j], t[j]);
+  }
+  if (q.c1) {
+    load_cols<CW, false>(t, cols + cstride + nn);
+#pragma unroll
+    for (int j = 0; j < CW; ++j) v[j] = __fadd_rn(v[j], t[j]);
+  }
+  if (q.q1) {
+#pragma unroll
+    for (int j = 0; j < CW; ++j)
+      v[j] = __fsub_rn(fminf(fmaxf(floorf(v[j]), s.lo1), s.hi1), s.sub1);
+  }
+  if (q.res) {
+    load_cols<CW, false>(t, cols + 2 * cstride + nn);
+#pragma unroll
+    for (int j = 0; j < CW; ++j) v[j] = __fmul_rn(v[j], t[j]);
+    if (q.res == 2) {
+      // CW int8 residual codes, 16 or 8 bytes at a time
+      const int8_t* r = reinterpret_cast<const int8_t*>(q.r) + o;
+      uint32_t rw[CW >= 4 ? CW / 4 : 1];
+      if (CW == 16) {
+        const int4 x = __ldg(reinterpret_cast<const int4*>(r));
+        rw[0] = x.x, rw[CW >= 8 ? 1 : 0] = x.y;
+        rw[CW >= 16 ? 2 : 0] = x.z, rw[CW >= 16 ? 3 : 0] = x.w;
+      } else if (CW == 8) {
+        const int2 x = __ldg(reinterpret_cast<const int2*>(r));
+        rw[0] = x.x, rw[CW >= 8 ? 1 : 0] = x.y;
+      }
+#pragma unroll
+      for (int j = 0; j < CW; ++j) {
+        const int rj = CW >= 8 ? (int8_t)(rw[j / 4] >> (8 * (j % 4)))
+                               : r[j];
+        v[j] = __fadd_rn(v[j], __fmul_rn((float)rj, s.mr));
+      }
+    } else if (q.res == 3) {
+      load_cols<CW, true>(t, reinterpret_cast<const float*>(q.r) + o);
+#pragma unroll
+      for (int j = 0; j < CW; ++j)
+        v[j] = __fadd_rn(v[j], __fmul_rn(t[j], s.mr));
+    }
+    load_cols<CW, false>(t, cols + 3 * cstride + nn);
+#pragma unroll
+    for (int j = 0; j < CW; ++j)
+      v[j] = __fsub_rn(fminf(fmaxf(floorf(__fadd_rn(v[j], t[j])), s.lo2),
+                            s.hi2), s.sub2);
+  }
+  int8_t* dst = reinterpret_cast<int8_t*>(out) + o;
+  if (CW >= 8) {
+    uint32_t w[CW >= 4 ? CW / 4 : 1];
+#pragma unroll
+    for (int k = 0; k < CW / 4; ++k)
+      w[k] = ((uint32_t)(uint8_t)(int)v[4 * k])
+             | ((uint32_t)(uint8_t)(int)v[4 * k + 1] << 8)
+             | ((uint32_t)(uint8_t)(int)v[4 * k + 2] << 16)
+             | ((uint32_t)(uint8_t)(int)v[4 * k + 3] << 24);
+    if (CW == 16)
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(w[0], w[CW >= 8 ? 1 : 0], w[CW >= 16 ? 2 : 0],
+                     w[CW >= 16 ? 3 : 0]);
+    else
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[CW >= 8 ? 1 : 0]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < CW; ++j) dst[j] = (int8_t)(int)v[j];
+  }
+}
+
 // Pass 2: the BM x BN tile staged at st (row stride SP floats) to out
 // (M, N) row-major, rows m0.., columns n0..; CW divides N (16, 8 or 1);
 // cols holds the block's requant terms (load_requant_cols).
@@ -115,92 +188,10 @@ __device__ __forceinline__ void store_tile_cw(const float* st, int mode,
     const int rl = c / CPR, nn = (c - rl * CPR) * CW;
     const int m = m0 + rl, n = n0 + nn;
     if (m >= M || n >= N) continue;
-    const size_t o = (size_t)m * N + n;
     float v[CW];
 #pragma unroll
     for (int j = 0; j < CW; ++j) v[j] = st[rl * SP + nn + j];
-    if (mode == STORE_F32 || mode == STORE_I32) {
-      float* dst = reinterpret_cast<float*>(out) + o;   // int32 bits as is
-      if (CW % 4 == 0) {
-#pragma unroll
-        for (int j = 0; j < CW; j += 4)
-          *reinterpret_cast<float4*>(dst + j) =
-              make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < CW; ++j) dst[j] = v[j];
-      }
-      continue;
-    }
-    float t[CW];
-    if (q.m1) {
-      load_cols<CW, false>(t, cols + nn);
-#pragma unroll
-      for (int j = 0; j < CW; ++j) v[j] = __fmul_rn(v[j], t[j]);
-    }
-    if (q.c1) {
-      load_cols<CW, false>(t, cols + BN + nn);
-#pragma unroll
-      for (int j = 0; j < CW; ++j) v[j] = __fadd_rn(v[j], t[j]);
-    }
-    if (q.q1) {
-#pragma unroll
-      for (int j = 0; j < CW; ++j)
-        v[j] = __fsub_rn(fminf(fmaxf(floorf(v[j]), s.lo1), s.hi1), s.sub1);
-    }
-    if (q.res) {
-      load_cols<CW, false>(t, cols + 2 * BN + nn);
-#pragma unroll
-      for (int j = 0; j < CW; ++j) v[j] = __fmul_rn(v[j], t[j]);
-      if (q.res == 2) {
-        // CW int8 residual codes, 16 or 8 bytes at a time
-        const int8_t* r = reinterpret_cast<const int8_t*>(q.r) + o;
-        uint32_t rw[CW >= 4 ? CW / 4 : 1];
-        if (CW == 16) {
-          const int4 x = __ldg(reinterpret_cast<const int4*>(r));
-          rw[0] = x.x, rw[CW >= 8 ? 1 : 0] = x.y;
-          rw[CW >= 16 ? 2 : 0] = x.z, rw[CW >= 16 ? 3 : 0] = x.w;
-        } else if (CW == 8) {
-          const int2 x = __ldg(reinterpret_cast<const int2*>(r));
-          rw[0] = x.x, rw[CW >= 8 ? 1 : 0] = x.y;
-        }
-#pragma unroll
-        for (int j = 0; j < CW; ++j) {
-          const int rj = CW >= 8 ? (int8_t)(rw[j / 4] >> (8 * (j % 4)))
-                                 : r[j];
-          v[j] = __fadd_rn(v[j], __fmul_rn((float)rj, s.mr));
-        }
-      } else if (q.res == 3) {
-        load_cols<CW, true>(t, reinterpret_cast<const float*>(q.r) + o);
-#pragma unroll
-        for (int j = 0; j < CW; ++j)
-          v[j] = __fadd_rn(v[j], __fmul_rn(t[j], s.mr));
-      }
-      load_cols<CW, false>(t, cols + 3 * BN + nn);
-#pragma unroll
-      for (int j = 0; j < CW; ++j)
-        v[j] = __fsub_rn(fminf(fmaxf(floorf(__fadd_rn(v[j], t[j])), s.lo2),
-                              s.hi2), s.sub2);
-    }
-    int8_t* dst = reinterpret_cast<int8_t*>(out) + o;
-    if (CW >= 8) {
-      uint32_t w[CW >= 4 ? CW / 4 : 1];
-#pragma unroll
-      for (int k = 0; k < CW / 4; ++k)
-        w[k] = ((uint32_t)(uint8_t)(int)v[4 * k])
-               | ((uint32_t)(uint8_t)(int)v[4 * k + 1] << 8)
-               | ((uint32_t)(uint8_t)(int)v[4 * k + 2] << 16)
-               | ((uint32_t)(uint8_t)(int)v[4 * k + 3] << 24);
-      if (CW == 16)
-        *reinterpret_cast<uint4*>(dst) =
-            make_uint4(w[0], w[CW >= 8 ? 1 : 0], w[CW >= 16 ? 2 : 0],
-                       w[CW >= 16 ? 3 : 0]);
-      else
-        *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[CW >= 8 ? 1 : 0]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < CW; ++j) dst[j] = (int8_t)(int)v[j];
-    }
+    store_chunk<CW>(v, mode, q, s, cols, BN, nn, (size_t)m * N + n, out);
   }
 }
 

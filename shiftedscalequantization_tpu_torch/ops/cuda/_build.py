@@ -53,8 +53,9 @@ SIGNATURES = {
     # KW, SH, SW, PH, PW, N, pad, vec, requant, stream
     "ssq_int8_conv": [_P] * 6 + [_I] * 14 + [_P, _P],
     # codes, w (S, N, KH*KW*Cg), table, acc_offset, delta, out, S, B, H, W,
-    # C, KH, KW, SH, SW, PH, PW, N, G, pad, vec, requant, stream
-    "ssq_int8_group_conv": [_P] * 6 + [_I] * 15 + [_P, _P],
+    # C, KH, KW, SH, SW, PH, PW, N, G, pad, plan (group_conv.LaunchPlan as
+    # ints), requant, stream
+    "ssq_int8_group_conv": [_P] * 6 + [_I] * 14 + [_P] * 3,
     # x, delta, zp, out, R, C, per_row, lo, hi, stream
     "ssq_fake_quant": [_P] * 4 + [_I] * 5 + [_P],
 }

@@ -534,40 +534,56 @@ def test_int8_conv_refuses_what_it_cannot_take(card):
     (1, 9, 15, 15, 3, 3, 2, 1, 4, 9),          # odd Cg = OC/G = 5
     (2, 7, 32, 48, 2, 3, 1, 1, 1, 0),          # OC/G = 24 > Cg = 16
     (2, 6, 16, 24, 2, 3, 1, 1, 2, 0),          # OC/G = 12
-    (2, 6, 96, 80, 2, 1, 1, 0, 1, 0)])         # 1x1, OC/G = 40: 2 tiles
+    (2, 6, 96, 80, 2, 1, 1, 0, 1, 0),          # 1x1, OC/G = 40: 2 chunks
+    (32, 7, 368, 368, 46, 3, 1, 1, 2, 0),      # 3 images a tile, last short
+    (1, 7, 528, 528, 22, 3, 1, 1, 2, 0),       # batch 1: 4-row bands, 7 % 4
+    (1, 56, 96, 96, 4, 3, 2, 1, 2, 0),         # batch 1, stride 2
+    (32, 28, 240, 240, 10, 3, 2, 1, 2, 0),     # bands of 5 rows of 14
+    (32, 15, 96, 96, 4, 3, 2, 1, 2, 0),        # 15x15 at stride 2
+    (32, 14, 560, 560, 14, 3, 1, 1, 2, 0),     # Cg = 40 (RegNetX-4000M)
+    (32, 14, 432, 432, 9, 3, 1, 1, 2, 0),      # Cg = 48 (-3200M), G odd
+    (32, 14, 784, 784, 14, 3, 1, 1, 2, 0),     # Cg = 56 (-6400M), 5 rows
+    (32, 28, 168, 168, 7, 3, 1, 1, 2, 0),      # Cg = 24, odd g: 8-byte runs
+    (32, 14, 240, 240, 10, 3, 1, 1, 4, 0),     # S = 4
+    (1, 7, 256, 512, 1, 3, 1, 1, 1, 0)])       # weights in column tiles
 def test_int8_group_conv_kernel_matches_plain(card, b, h, c, n, groups,
                                               kern, stride, pad, s, offset):
     """The grouped kernel against its plain version: int32 sums (S = 1),
     the scale-table sum and a unit-site and a block requant with an int8
-    residual, bit-exact, one launch each; with pad values of a biased
-    feed, group widths 24, 16, 8 and odd, and OC/G of 5, 12, 24, 40."""
+    and an f32 residual, bit-exact, one launch each, with codes of a 4-bit
+    feed (offset 0) and of a biased 8-bit one (offset 128, and the case's
+    own); group widths 256, 56, 48, 40, 24, 16, 8 and odd, OC/G of 5, 12,
+    24, 40, 512 (in column tiles); tiles of several images, bands that do
+    not divide the image, batch 1 and S up to 4."""
     from shiftedscalequantization_tpu_torch.ops.cuda import group_conv as TG
     g = torch.Generator(device=card).manual_seed(7)
-    span = 128 if offset else 8
-    x = torch.randint(-span, span, (b, h, h, c), generator=g, device=card,
-                      dtype=torch.int8)
     w = torch.randint(-2, 3, (s, n, kern * kern * (c // groups)),
                       generator=g, device=card, dtype=torch.int8)
-    off = offset * w.sum(dim=2, dtype=torch.int32) if offset else None
     geom = ((kern, kern), (stride, stride), (pad, pad))
     table = torch.rand((s, n), generator=g, device=card) * 0.02 + 1e-3
     delta = torch.tensor(0.37, device=card)
-    modes = [dict(group_scales=table, act_delta=delta)]
-    if s == 1:
-        modes.append({})
     ho = (h + 2 * pad - kern) // stride + 1
-    for rq in _requants(g, card, n, (b, ho, ho, n)).values():
-        modes.append(dict(group_scales=table, act_delta=delta, requant=rq))
-    for kw in modes:
-        before = TG.int8_group_conv.launches
-        got = TG.int8_group_conv(x, w, *geom, groups, pad_value=-offset,
-                                 acc_offset=off, **kw)
-        torch.cuda.synchronize()
-        assert TG.int8_group_conv.launches == before + 1
-        want = TG.int8_group_conv_plain(x, w, *geom, groups,
-                                        pad_value=-offset, acc_offset=off,
-                                        **kw)
-        assert got.dtype == want.dtype and torch.equal(got, want)
+    for off_n in sorted({0, 128, offset}):
+        span = 128 if off_n else 8
+        x = torch.randint(-span, span, (b, h, h, c), generator=g,
+                          device=card, dtype=torch.int8)
+        off = off_n * w.sum(dim=2, dtype=torch.int32) if off_n else None
+        modes = [dict(group_scales=table, act_delta=delta)]
+        if s == 1:
+            modes.append({})
+        for rq in _requants(g, card, n, (b, ho, ho, n)).values():
+            modes.append(dict(group_scales=table, act_delta=delta,
+                              requant=rq))
+        for kw in modes:
+            before = TG.int8_group_conv.launches
+            got = TG.int8_group_conv(x, w, *geom, groups, pad_value=-off_n,
+                                     acc_offset=off, **kw)
+            torch.cuda.synchronize()
+            assert TG.int8_group_conv.launches == before + 1
+            want = TG.int8_group_conv_plain(x, w, *geom, groups,
+                                            pad_value=-off_n,
+                                            acc_offset=off, **kw)
+            assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 def test_int8_group_conv_refuses_what_it_cannot_take(card):

@@ -19,6 +19,7 @@ weight groups; pad values of a biased (offset) feed. The card-only tests
 (``tests/test_torch_port_cuda.py``) hold the kernel to the plain version
 at these shapes.
 """
+import dataclasses
 from types import SimpleNamespace as NS
 
 import numpy as np
@@ -242,3 +243,293 @@ def test_block_diagonal_layout():
         assert torch.equal(row[2 * g:2 * g + 2], w[oc, :, 0, 0])
         assert int(row.abs().sum()) == int(w[oc].abs().sum())
 
+
+
+# ---- the kernel's launch plan (group_conv_launch_plan) -----------------
+
+def _zoo_grouped_shapes():
+    """(H, W, C, N, G, kernel, stride, padding) of every grouped unit of
+    the eight RegNetX X configs at 224x224, from the zoo."""
+    from shiftedscalequantization_tpu_torch.graph import iter_units
+    from shiftedscalequantization_tpu_torch.models import regnet, zoo
+    shapes = set()
+    for arch in regnet.CONFIGS:
+        graph = zoo.build(arch)[0]
+        hw = TD._unit_in_hw(graph, (224, 224))
+        shapes |= {(*hw[u.name], u.in_ch, u.out_ch, u.groups, u.kernel[0],
+                    u.stride[0], u.padding[0])
+                   for u in iter_units(graph) if u.groups > 1}
+    return sorted(shapes)
+
+
+ZOO_GROUPED = _zoo_grouped_shapes()
+# shapes outside the zoo the kernel takes: odd Cg = OC/G = 5; Cg = 12 with
+# OC/G = 18; Cg = 16 with OC/G = 24; OC/G = 12; a 1x1 grouped conv with
+# OC/G = 40; 15x15 at stride 2; OC/G = 5 at stride 1; a dense conv wide
+# enough to need column tiles
+ODD_GROUPED = [(15, 15, 15, 15, 3, 3, 2, 1), (28, 28, 48, 72, 4, 3, 1, 1),
+               (7, 7, 32, 48, 2, 3, 1, 1), (6, 6, 16, 24, 2, 3, 1, 1),
+               (6, 6, 96, 80, 2, 1, 1, 0), (15, 15, 96, 96, 4, 3, 2, 1),
+               (9, 9, 15, 15, 3, 3, 1, 1), (7, 7, 256, 512, 1, 3, 1, 1)]
+
+
+def _plan(shape, b, s_n, x_align=16, w_align=16):
+    h, w, c, n, g, k, st, p = shape
+    return TG.group_conv_launch_plan(b, h, w, c, n, g, (k, k), (st, st),
+                                     (p, p), s_n, 132, x_align, w_align)
+
+
+def _tile_run(plan, t, b, ho, wo):
+    """(first output row m0, pixels) of pixel tile t, as the kernel
+    computes them."""
+    nb = -(-ho // plan.th)
+    bi, hb = divmod(t, nb)
+    b0, ho0 = bi * plan.ni, hb * plan.th
+    return ((b0 * ho + ho0) * wo,
+            min(plan.ni, b - b0) * min(plan.th, ho - ho0) * wo)
+
+
+def _block_columns(plan, by, ocg):
+    """(first output column n0, columns) of the blocks in grid row by."""
+    st, ct = divmod(by, plan.ctiles)
+    c0 = ct * plan.ncols
+    ncl = min(plan.ncols, ocg - c0)
+    return st * plan.gb * ocg + c0, plan.gb * ncl
+
+
+def _offset_tables(plan, kernel, stride, wo):
+    """The kernel's tap offsets (per 4-byte word of K') and pixel offsets
+    (per tile pixel) into a halo buffer."""
+    (kh, kw), (sh, sw) = kernel, stride
+    k = np.arange(plan.kp // 4) * 4
+    tap, ic = k // plan.cgp, k % plan.cgp
+    koff = np.where(tap < kh * kw,
+                    ((tap // kw) * plan.hwc + tap % kw) * plan.cpix + ic, 0)
+    tm = plan.ni * plan.th * wo
+    lp = np.arange(-(-tm // 32) * 32)
+    ni, r = lp // (plan.th * wo), lp % (plan.th * wo)
+    pix = np.where(lp < tm, ((ni * plan.hr + (r // wo) * sh) * plan.hwc
+                             + (r % wo) * sw) * plan.cpix, 0)
+    return koff, pix
+
+
+@pytest.mark.parametrize("b", [1, 256])
+@pytest.mark.parametrize("shape", ZOO_GROUPED + ODD_GROUPED,
+                         ids=["x".join(map(str, s))
+                              for s in ZOO_GROUPED + ODD_GROUPED])
+def test_launch_plan_covers_and_fits(shape, b):
+    """For every grouped shape of the zoo's RegNetX configs (and the odd
+    ones) at batch 1 and 256, S = 1..4: the blocks cover every output
+    pixel of every conv group exactly once; every tap of every pixel of a
+    tile (image borders, strides 1 and 2) reads the halo cell of its input
+    pixel, inside the buffer; shared memory and the grid stay within the
+    card's limits; the copy widths divide the channel runs, their starts
+    and the addresses."""
+    h, w, c, n, g, k, st, p = shape
+    ho, wo = (h + 2 * p - k) // st + 1, (w + 2 * p - k) // st + 1
+    cg, ocg = c // g, n // g
+    for s_n in range(1, 5):
+        plan = _plan(shape, b, s_n)
+        mf = -(-plan.ni * plan.th * wo // 16)
+        halo = plan.ni * plan.hr * plan.hwc * plan.cpix
+        assert plan.smem == TG.smem_bytes(s_n, plan.gb, plan.ncols,
+                                          plan.ntw, plan.nch, plan.mt,
+                                          plan.kp, halo, plan.sw,
+                                          mf) <= TG.MAX_SMEM
+        assert plan.mt == (2 if 2 * s_n * plan.ntw <= TG.ACC_TILES else 1)
+        assert 1 <= plan.grid_x <= plan.tiles and plan.grid_y <= 65535
+        assert plan.grid_y == g // plan.gb * plan.ctiles
+        # copies: whole chunks of the set's channel run, at aligned starts
+        run = plan.gb * cg
+        assert plan.cw in (16, 8, 4, 1) and run % plan.cw == 0
+        assert c % plan.cw == 0 and plan.cpix % max(4, plan.cw) == 0
+        assert plan.cpix >= plan.gb * plan.cgp and plan.cgp % 4 == 0
+        assert (plan.cw == 1) == (cg % 4 != 0)
+        assert plan.cww in (16, 8, 4, 1) and (k * k * cg) % plan.cww == 0
+        assert plan.kp % 32 == 0 and plan.kp >= k * k * plan.cgp
+        assert plan.nch * plan.ntw * 8 >= plan.ncols and plan.ntw <= 4
+        assert plan.sw >= 8 * plan.ntw and plan.sw % 32 in (8, 24)
+        # fragment reads of neighbouring pixels: at most 2-way conflicts
+        assert TG.bank_conflicts(plan.cpix, st) <= 2
+        # pixels: each tile once, the tiles' runs partition the M rows
+        seen = sorted(t for bx in range(plan.grid_x)
+                      for t in range(bx, plan.tiles, plan.grid_x))
+        assert seen == list(range(plan.tiles))
+        runs = sorted(_tile_run(plan, t, b, ho, wo)
+                      for t in range(plan.tiles))
+        assert runs[0][0] == 0 and all(
+            m0 + cnt == nxt for (m0, cnt), (nxt, _) in zip(runs, runs[1:]))
+        assert sum(cnt for _, cnt in runs) == b * ho * wo
+        # columns: the grid rows' runs partition the N channels
+        cols = sorted(_block_columns(plan, by, ocg)
+                      for by in range(plan.grid_y))
+        assert cols[0][0] == 0 and all(
+            n0 + wb == nxt for (n0, wb), (nxt, _) in zip(cols, cols[1:]))
+        assert sum(wb for _, wb in cols) == n
+        assert all(n0 % plan.ovec == 0 and wb % plan.ovec == 0
+                   for n0, wb in cols) and n % plan.ovec == 0
+        assert ocg % plan.ovec == 0 and (
+            plan.nch == 1 or 8 * plan.ntw % plan.ovec == 0)
+        # every tap of the first and last tiles' pixels: its halo row holds
+        # input row ho*s - p + kh of its image, its cell input column
+        # wo*s - p + kw, and the read stays inside the buffer
+        koff, pix = _offset_tables(plan, (k, k), (st, st), wo)
+        assert pix.max() + koff.max() + (plan.gb - 1) * cg + 4 <= halo
+        nb = -(-ho // plan.th)
+        for t in {0, plan.tiles - 1}:
+            m0, cnt = _tile_run(plan, t, b, ho, wo)
+            m = m0 + np.arange(cnt)
+            img, rem = m // (ho * wo), m % (ho * wo)
+            oh, ow = rem // wo, rem % wo
+            b0 = t // nb * plan.ni
+            hi0 = t % nb * plan.th * st - p
+            lp = np.arange(cnt)
+            for kh in range(k):
+                for kw in range(k):
+                    cell = (pix[lp] + (kh * plan.hwc + kw) * plan.cpix) \
+                        // plan.cpix
+                    row, col = cell // plan.hwc, cell % plan.hwc
+                    assert (row < plan.ni * plan.hr).all()
+                    assert np.array_equal(b0 + row // plan.hr, img)
+                    assert np.array_equal(hi0 + row % plan.hr,
+                                          oh * st - p + kh)
+                    assert np.array_equal(col - p, ow * st - p + kw)
+
+
+def _emulate(x, wm, geom, g, plan, pad, rng):
+    """The kernel's algorithm in numpy, by its plan: per block the staged
+    weights (k' = tap*cgp + ic, zeros past Cg, the taps and the group's
+    columns), per tile a halo buffer of stale bytes filled as the kernel
+    fills it (the set's channel run per cell, the pad code outside the
+    image), every tap read through the offset tables. Returns the (S, M,
+    N) int64 sums; raises if an output is written twice or never."""
+    b, h, w, c = x.shape
+    s_n, n, _ = wm.shape
+    (kh, kw), (sh, sw), (ph, pw) = geom
+    ho, wo = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
+    cg, ocg, taps = c // g, n // g, kh * kw
+    ntp8 = plan.nch * plan.ntw * 8
+    koff, pix = _offset_tables(plan, (kh, kw), (sh, sw), wo)
+    nbytes = plan.ni * plan.hr * plan.hwc * plan.cpix
+    nb = -(-ho // plan.th)
+    out = np.zeros((s_n, b * ho * wo, n), np.int64)
+    written = np.zeros((b * ho * wo, n), np.int64)
+    for by in range(plan.grid_y):
+        st, ct = divmod(by, plan.ctiles)
+        g0, c0 = st * plan.gb, ct * plan.ncols
+        ncl = min(plan.ncols, ocg - c0)
+        n0 = g0 * ocg + c0
+        wts = np.zeros((s_n, plan.gb, ntp8, plan.kp), np.int64)
+        for gi in range(plan.gb):
+            rows = wm[:, (g0 + gi) * ocg + c0:(g0 + gi) * ocg + c0 + ncl]
+            for tp in range(taps):
+                wts[:, gi, :ncl, tp * plan.cgp:tp * plan.cgp + cg] = \
+                    rows[:, :, tp * cg:(tp + 1) * cg]
+        for bx in range(plan.grid_x):
+            for t in range(bx, plan.tiles, plan.grid_x):
+                buf = rng.integers(-128, 128, nbytes)
+                bi, hb = divmod(t, nb)
+                b0, hi0 = bi * plan.ni, hb * plan.th * sh - ph
+                for r in range(plan.ni * plan.hr):
+                    img, hi = b0 + r // plan.hr, hi0 + r % plan.hr
+                    for col in range(plan.hwc):
+                        wi, at = col - pw, (r * plan.hwc + col) * plan.cpix
+                        buf[at:at + plan.gb * cg] = (
+                            x[img, hi, wi, g0 * cg:(g0 + plan.gb) * cg]
+                            if img < b and 0 <= hi < h and 0 <= wi < w
+                            else pad)
+                m0, cnt = _tile_run(plan, t, b, ho, wo)
+                for gi in range(plan.gb):
+                    at = (pix[:cnt, None] + koff[None, :] + gi * cg)[
+                        :, :, None] + np.arange(4)
+                    a = buf[at.reshape(cnt, plan.kp)]
+                    cols = n0 + gi * ncl + np.arange(ncl)
+                    for s in range(s_n):
+                        out[s, m0:m0 + cnt, cols] = (a @ wts[s, gi, :ncl].T).T
+                    written[m0:m0 + cnt, cols] += 1
+    assert (written == 1).all()
+    return out
+
+
+# (b, h, w, c, n, G, kernel, stride, padding, S, pad value)
+EMULATED = [
+    (3, 7, 7, 48, 48, 2, 3, 1, 1, 2, 0),       # 600M's Cg 24, two a block
+    (2, 9, 9, 48, 48, 2, 3, 2, 1, 1, -128),    # stride 2, odd size
+    (2, 15, 15, 96, 96, 4, 3, 2, 1, 4, 0),     # 15x15/s2, S = 4
+    (1, 14, 14, 72, 72, 3, 3, 1, 1, 1, -3),    # odd G: one group a block
+    (2, 8, 8, 80, 80, 2, 3, 1, 1, 3, 0),       # Cg = 40 (4000M)
+    (2, 7, 7, 112, 112, 2, 3, 1, 1, 2, 5),     # Cg = 56 (6400M)
+    (1, 9, 9, 15, 15, 3, 3, 2, 1, 4, 9),       # odd Cg = OC/G = 5, bytes
+    (2, 6, 6, 48, 72, 4, 3, 1, 1, 2, 0),       # Cg 12, OC/G 18: 4 a block
+    (2, 6, 6, 96, 80, 2, 1, 1, 0, 1, 0),       # 1x1, OC/G = 40
+    (1, 5, 5, 256, 512, 1, 3, 1, 1, 1, 0),     # column tiles
+    (40, 7, 7, 16, 16, 2, 3, 1, 1, 1, 0),      # many images, tiles cross
+]
+
+
+@pytest.mark.parametrize("case", EMULATED,
+                         ids=["x".join(map(str, e[:9])) for e in EMULATED])
+def test_launch_plan_emulated_matches_plain(case):
+    """The kernel's tiling, emulated in numpy from its plan (offset tables,
+    halo buffers of stale bytes, padded weights), gives the plain version's
+    int32 sums bit for bit for every weight group."""
+    b, h, w, c, n, g, k, st, p, s_n, pad = case
+    rng = np.random.default_rng(b * 131 + c + n)
+    x = rng.integers(-128, 128, (b, h, w, c)).astype(np.int8)
+    wm = rng.integers(-128, 128, (s_n, n, k * k * c // g)).astype(np.int8)
+    geom = ((k, k), (st, st), (p, p))
+    plan = TG.group_conv_launch_plan(b, h, w, c, n, g, *geom, s_n)
+    if c == 256:
+        assert plan.ctiles > 1
+    plans = [plan]
+    if b > 1:
+        # whole images, the last tile short, each block walking tiles
+        ho = (h + 2 * p - k) // st + 1
+        ni = min(3, b)
+        tiles = -(-b // ni)
+        plans.append(dataclasses.replace(
+            plan, ni=ni, th=ho, hr=(ho - 1) * st + k, tiles=tiles,
+            grid_x=max(1, tiles // 2)))
+    for pl in plans:
+        got = _emulate(x, wm.astype(np.int64), geom, g, pl, pad, rng)
+        for s in range(s_n):
+            want = TG.int8_group_conv_plain(
+                torch.as_tensor(x), torch.as_tensor(wm[s:s + 1]), *geom, g,
+                pad_value=pad)
+            assert np.array_equal(got[s], want.reshape(-1, n).numpy())
+
+
+def test_launch_plan_struct_matches_the_kernel():
+    """The plan's decisions, LaunchPlan's leading fields, are the kernel's
+    struct Plan, in order, and all that c_args passes."""
+    import re
+    from pathlib import Path
+    src = (Path(TG.__file__).resolve().parents[2] / "csrc"
+           / "int8_group_conv.cu").read_text()
+    body = re.search(r"struct Plan \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"\w+", body.replace("int", " ", 1))
+    names = [f.name for f in dataclasses.fields(TG.LaunchPlan)]
+    assert fields == list(TG.DECISIONS) == names[:len(fields)]
+    plan = _plan(ZOO_GROUPED[0], 4, 2)
+    assert list(plan.c_args) == [getattr(plan, f) for f in fields]
+
+
+def test_launch_plan_refuses_what_does_not_fit():
+    """A halo row wider than shared memory, even one output row a tile,
+    raises before any launch; so does a shape with no output."""
+    with pytest.raises(ValueError, match="shared memory"):
+        TG.group_conv_launch_plan(1, 64, 64, 8192, 8192, 2, (3, 3), (1, 1),
+                                  (1, 1), 1)
+    with pytest.raises(ValueError, match="no kernel launch"):
+        TG.group_conv_launch_plan(1, 2, 2, 8, 8, 2, (5, 5), (1, 1), (0, 0),
+                                  1)
+
+
+def test_launch_plan_copy_widths_follow_alignment():
+    """The halo copy shrinks to what the codes' address allows (bytes below
+    4), the weight copy to the weights' address."""
+    shape = (14, 14, 240, 240, 10, 3, 1, 1)
+    assert _plan(shape, 4, 2).cw == 16
+    assert _plan(shape, 4, 2, x_align=8).cw == 8
+    assert _plan(shape, 4, 2, x_align=2).cw == 1
+    assert _plan(shape, 4, 2, w_align=4).cww == 4

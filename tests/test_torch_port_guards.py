@@ -123,3 +123,19 @@ def test_unported_weight_quantizer_is_refused():
 
     with pytest.raises(NotImplementedError, match="ActShiftQuant"):
         JI.qstate_from_numpy({"u": Unit()}, device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_c_entry_argtypes_match_the_sources(name):
+    """Each C entry's ctypes argtypes follow its definition in the
+    sources, parameter by parameter: a pointer (or the stream) as
+    c_void_p, an int as c_int; a wrong list would hand a pointer over as a
+    32-bit int."""
+    import ctypes
+    import re
+    code = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    params = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{",
+                       code, re.S).group(1)
+    kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+             for p in params.split(",")]
+    assert kinds == _build.SIGNATURES[name]

@@ -172,12 +172,48 @@ non-zero exit and no result line:
    of the final state on the 2048 test images, beside
    ACCURACY_regnet_r4.md; gates: FP top-1 equals the port CLI's on the
    CPU (PORT_CLI_FP_TOP1), brecq's final top-1 >= FP - 3 points, deploy
-   within 0.5 points of the final (sim) top-1.
+   within 0.5 points of the final (sim) top-1;
+28. fisher: on ImageNet ResNet-18 W2A4 at full width (seeded, 64 rows),
+   capture_grads for a block (model.layer2.0) and a nested unit
+   (model.layer3.0.conv1) on the card and on the CPU (the plain
+   versions), the head scaled to unit logit std on the rows (random
+   weights saturate the softmax and leave the KL no gradient), without
+   the damping (g - 1 exactly): the damped values >= 1 and some > 1;
+   max|card - CPU| <= FISHER_GATE * max(g_cpu - 1) on every row where no
+   relu input downstream of the target changed sign between the two
+   runs, and each sign change a tie (|x| <= FISHER_TIE of its row's
+   max): a relu input at a tie passes the gradient in one run and not in
+   the other;
+   the seconds per target; then model.layer4.1 reconstructed with
+   fisher_diag and with fisher_full on the card and on the CPU from the
+   same caches and grads, as 18 (rec_trace within PARITY_RTOL, codes
+   within PARITY_FLIPS);
+29. cli fisher and act-shift: cli.main twice as in 20 (METHOD_CLI_RUNS:
+   --mode brecq --opt_mode fisher_diag, and --mode fused --act_mode
+   shift with 100 act steps, 128 rows, 100 steps a target): 9 finite
+   hard losses each, and a hardened ActShiftQuant at each of the 16 act
+   sites of the targets; the act-shift checkpoint served at batch 256:
+   its sim forward launches fake_quant once per candidate of each
+   act-shift site (and once at the stem's site and its UniformWQ
+   weight); the plan's kinds equal its CPU plan's, every per-channel
+   site an f32 edge; the deploy launches (counters reset just before)
+   equal those the CPU plan gives (plan_launches) and the requants left
+   to PyTorch the CPU deploy's; no NaN; deploy vs sim rel-MSE <=
+   RELMSE_GATE beside the JAX package's own gap (JAX_ACT_SHIFT_GAP,
+   act_shift_parity_gap.py); card vs CPU deploy on 8 grid images
+   rel-MSE <= 1e-8, same top-1; its ms/batch beside phase 13's;
+30. search: on SEARCH_UNIT with SEARCH_ROWS FP-cached rows of phase 28's
+   state, on the card and on the CPU: weight_greedy_selection and
+   dist_selection equal but at pairs whose two losses tie within
+   SEARCH_TIE; output_greedy_selection (one sweep) no worse than the
+   all-base selection and within SEARCH_RTOL of the CPU's loss; its
+   seconds.
 
 It imports nothing of JAX. Standard output ends with a JSON line of
 details, a JSON line of the kernels, the nvidia-smi line, the total
 seconds, and then ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -1708,7 +1744,6 @@ def cli_phases(torch):
     """Phases 20-21: the port's CLI driven in-process (cli.main) for the
     three runs of CLI_RUNS, then run 1's final checkpoint served. Returns
     what the result lines report."""
-    import contextlib
     import tempfile
     import numpy as np
     from shiftedscalequantization_tpu_torch import cli, deploy
@@ -1718,10 +1753,7 @@ def cli_phases(torch):
     from shiftedscalequantization_tpu_torch.recon import pipeline
     from shiftedscalequantization_tpu_torch.utils import checkpoint as ck
     from shiftedscalequantization_tpu_torch.utils.config import load_args
-
-    def sync():
-        if DEVICE != "cpu":
-            torch.cuda.synchronize()
+    sync = _sync
 
     # what the brecq run's pipeline gives ACT_PARITY_TARGET's act phase
     act_rec = {}
@@ -1741,28 +1773,11 @@ def cli_phases(torch):
             "--checkpoint_dir", os.path.join(tmp.name, name),
             "--log_path", os.path.join(tmp.name, f"{name}.log"),
             "--golden_dir", os.path.join(tmp.name, f"{name}_golden")]
-        print(f"  cli run {name}: python -m "
-              f"shiftedscalequantization_tpu_torch.cli {' '.join(argv)}",
-              flush=True)
-        tee = _Tee(sys.stdout)
-        sync()
-        reset_counts()
-        t = time.perf_counter()
         pipeline.reconstruct_act_delta = record_act_phase
         try:
-            with contextlib.redirect_stdout(tee):
-                final = cli.main(argv)
+            wall, final, hard, out, launches = _run_cli(torch, name, argv)
         finally:
             pipeline.reconstruct_act_delta = act_phase
-        sync()
-        wall = time.perf_counter() - t
-        launches = counts()
-        out = "".join(tee.parts)
-        hard = {}
-        for line in out.splitlines():
-            if line.startswith("Reconstructed "):
-                target, rest = line[len("Reconstructed "):].split(": ", 1)
-                hard[target] = float(rest.split(" -> hard ")[1].split()[0])
         logits = np.load(os.path.join(tmp.name, f"{name}_golden",
                                       "result_2bit.npz"))["logits"]
         drift = [ln for ln in out.splitlines()
@@ -2419,6 +2434,508 @@ def regnet_cli_phases(torch):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# the Fisher losses, the act-shift phase and the searches (phases 28-30)
+# ---------------------------------------------------------------------------
+
+FISHER_ROWS = 64                 # capture_grads and layer4.1's caches
+FISHER_TARGETS = ("model.layer2.0", "model.layer3.0.conv1")
+FISHER_GATE = 1e-3               # max|g_card - g_cpu| / max(g_cpu - 1)
+FISHER_TIE = 1e-5                # a relu input this close to 0 (over its
+                                 # row's max) is a tie
+# phase 29: the port's CLI twice on ImageNet ResNet-18 W2A4 at full width
+# (CLI_COMMON), 128 calibration rows and 100 steps a target
+METHOD_CLI_RUNS = [
+    ("fisher", ["--mode", "brecq", "--opt_mode", "fisher_diag",
+                "--iters_w", "100", "--iters_a", "0", "--num_samples", "128",
+                "--skip_test", "true"]),
+    ("act_shift", ["--mode", "fused", "--act_quant", "true", "--act_mode",
+                   "shift", "--iters_w", "100", "--iters_a", "100",
+                   "--act_shift_targets", "1.0,0.5", "--num_samples", "128",
+                   "--skip_test", "true"]),
+]
+# the JAX package's own deploy-vs-sim logit rel-MSE on an act-shift state
+# of the phase 29 recipe (act_shift_parity_gap.py: 64 rows, 20 steps a
+# target, 32 test images, on the CPU); below RELMSE_GATE, which stays
+JAX_ACT_SHIFT_GAP = 8.688941575775322e-05
+SEARCH_UNIT = "model.layer3.0.conv2"   # IC 256, 14x14
+SEARCH_ROWS = 64
+SEARCH_TIE = 1e-6                # relative gap of a pair's two losses
+SEARCH_RTOL = 1e-3               # output greedy loss, card vs CPU
+
+
+def _sync():
+    """Wait for the card (no-op on the CPU, where DEVICE may point for a
+    rehearsal of the phases)."""
+    import torch
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def plan_launches(graph, plan):
+    """The kernel launches one deploy forward takes for ``plan``'s kinds
+    (deploy.run_unit's routes): stem_fused, dw_int8 and packed units one
+    launch of their kernel each; the integer kinds one int8_conv launch
+    (int8_group_conv for a grouped conv that is not densified), a
+    depthwise one none."""
+    from shiftedscalequantization_tpu_torch.graph import iter_units
+    want = dict(stem_fused=0, dw_conv3x3_int8=0, packed_quant_matmul=0,
+                int8_conv=0, int8_group_conv=0)
+    route = {"stem_fused": "stem_fused", "dw_int8": "dw_conv3x3_int8",
+             "packed": "packed_quant_matmul"}
+    for u in iter_units(graph):
+        kind = plan[u.name][0]
+        if kind in route:
+            want[route[kind]] += 1
+        elif kind in ("int8", "bf16_codes", "int8_bd", "int8_pair"):
+            if u.kind == "conv" and u.groups == u.in_ch == u.out_ch > 1:
+                continue
+            grouped = u.kind == "conv" and u.groups > 1 and kind != "int8_bd"
+            want["int8_group_conv" if grouped else "int8_conv"] += 1
+    return want
+
+
+@contextlib.contextmanager
+def relu_inputs(store):
+    """Append to ``store`` every relu input on the gradient path
+    (graph._activation while a tensor that requires grad passes)."""
+    from shiftedscalequantization_tpu_torch import graph as G
+    real = G._activation
+
+    def act(name, x):
+        if name == "relu" and x.requires_grad:
+            store.append(x.detach().cpu())
+        return real(name, x)
+
+    G._activation = act
+    try:
+        yield store
+    finally:
+        G._activation = real
+
+
+def sign_flips(torch, card, host, rows):
+    """(relu sign changes per row, the largest |x| of a changed input
+    over its row's max |x|) between two runs' relu_inputs."""
+    flips = torch.zeros(rows, dtype=torch.long)
+    tie = 0.0
+    for a, b in zip(card, host):
+        f = (a > 0) != (b > 0)
+        flips += f.reshape(rows, -1).sum(1)
+        if bool(f.any()):
+            row_max = a.abs().reshape(rows, -1).amax(1).clamp_min(1e-30)
+            rel = a.abs() / row_max.reshape((rows,) + (1,) * (a.ndim - 1))
+            tie = max(tie, float(rel[f].max()))
+    return flips, tie
+
+
+def fisher_phase(torch, gen):
+    """Phase 28: capture_grads and the Fisher reconstruction on the card
+    against the CPU (the plain versions), ImageNet ResNet-18 W2A4 at full
+    width. Returns what the result lines report and the state phase 30
+    reuses."""
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.graph import Flags, find_node, \
+        forward, node_unit_names
+    from shiftedscalequantization_tpu_torch.models import zoo
+    from shiftedscalequantization_tpu_torch.recon import capture, engine
+    sync = _sync
+    t0 = time.perf_counter()
+    g, _ = zoo.build("resnet18", dataset="imagenet")
+    cfg = Q.QuantConfig(n_bits_w=2, n_bits_a=4)
+    raw = zoo.init_params(g, seed=3, device=DEVICE)
+    cali = torch.randn((FISHER_ROWS, HW, HW, 3), generator=gen,
+                       device=DEVICE)
+    # random weights saturate the softmax (logit std about 37: the KL's
+    # gradient 1e-10, below f32's step at 1): the head is scaled to unit
+    # logit std on these rows, as a trained net's softmax is soft
+    fp = forward(g, *Q.prepare_model(g, raw, cfg, device=DEVICE), cali,
+                 Flags(), device=DEVICE)
+    head_scale = 1.0 / float(fp.std())
+    raw["model.fc"]["w"] = raw["model.fc"]["w"] * head_scale
+    del fp
+    params, qs = Q.prepare_model(g, raw, cfg, device=DEVICE)
+    cparams, cqs, ccali = (Q.to_device(params, "cpu"),
+                           Q.to_device(qs, "cpu"), cali.cpu())
+    grads = {}
+    for target in FISHER_TARGETS:
+        # damping 0: g - 1 exactly (f32 holds 1 + g to one ulp of 1);
+        # relu inputs downstream of the target recorded in both runs; the
+        # card's time taken by a run without the recording
+        rc, rh = [], []
+        sync()
+        t = time.perf_counter()
+        capture.capture_grads(g, params, qs, target, cali, batch_size=64,
+                              device=DEVICE)
+        sync()
+        card_s = time.perf_counter() - t
+        with relu_inputs(rc):
+            card = capture.capture_grads(g, params, qs, target, cali,
+                                         batch_size=64, damping=0.0,
+                                         device=DEVICE)
+        t = time.perf_counter()
+        with relu_inputs(rh):
+            host = capture.capture_grads(g, cparams, cqs, target, ccali,
+                                         batch_size=64, damping=0.0,
+                                         device="cpu")
+        cpu_s = time.perf_counter() - t
+        flips, tie = sign_flips(torch, rc, rh, FISHER_ROWS)
+        del rc, rh
+        damped = card + 1.0          # capture_grads' default damping
+        signal = max(float(host.max()), 1e-30)
+        rows = (card.cpu() - host).abs().reshape(FISHER_ROWS, -1) \
+            .amax(1) / signal
+        clean = rows[flips == 0]
+        grads[target] = dict(
+            shape=list(card.shape), card_s=card_s, cpu_s=cpu_s,
+            signal=signal, max_err_rel=float(rows.max()),
+            max_err_rel_rows_without_flip=float(clean.max())
+            if clean.numel() else 0.0,
+            rows_with_flips=int((flips > 0).sum()),
+            relu_flips=int(flips.sum()), largest_flipped_input=tie,
+            min_damped=float(damped.min()), max_damped=float(damped.max()))
+        r = grads[target]
+        print(f"  capture_grads {target} {tuple(card.shape)}: card "
+              f"{card_s:.3f} s, CPU {cpu_s:.2f} s; max(g - 1) {signal:.4g}; "
+              f"max|card - CPU| / max(g - 1) {r['max_err_rel']:.3g} over "
+              f"all rows, {r['max_err_rel_rows_without_flip']:.3g} over the "
+              f"{FISHER_ROWS - r['rows_with_flips']} rows where no relu "
+              f"input changed sign (gate {FISHER_GATE:g}); "
+              f"{r['relu_flips']} sign changes in {r['rows_with_flips']} "
+              f"rows, the largest input |x| {tie:.3g} of its row's max "
+              f"(gate {FISHER_TIE:g}); damped g in [{r['min_damped']:.9g}, "
+              f"{r['max_damped']:.9g}]", flush=True)
+        if not (r["min_damped"] >= 1.0 and r["max_damped"] > 1.0
+                and r["max_err_rel_rows_without_flip"] <= FISHER_GATE
+                and tie <= FISHER_TIE):
+            raise AssertionError(f"capture_grads {target}: {r}")
+    del card, host, damped
+    phase("fisher grads", t0)
+
+    t0 = time.perf_counter()
+    pt = "model.layer4.1"
+    ci, co = capture.capture_io(g, params, qs, pt, cali, Flags(), Flags(),
+                                batch_size=64, device=DEVICE)
+    gr = capture.capture_grads(g, params, qs, pt, cali, batch_size=64,
+                               device=DEVICE)
+    base = engine.ReconSettings(
+        mode="fused", iters=PARITY_ITERS, batch_size=RECON_BATCH,
+        shift_targets=SHIFT_TARGETS, warmstart_frac=0.25,
+        post_round_frac=0.5)
+    recon = {}
+    for kind in ("fisher_diag", "fisher_full"):
+        s = dataclasses.replace(base, rec_loss=kind)
+        qs_card, m_card = engine.reconstruct_node(g, params, qs, pt, ci, co,
+                                                  s, seed=7, cached_grads=gr)
+        sync()
+        t = time.perf_counter()
+        qs_cpu, m_cpu = engine.reconstruct_node(
+            g, cparams, cqs, pt, ci.cpu(), co.cpu(), s, seed=7,
+            cached_grads=gr.cpu())
+        cpu_s = time.perf_counter() - t
+        par = {}
+        for key, a, b in (("warm start", m_card["warmstart"]["rec_trace"],
+                           m_cpu["warmstart"]["rec_trace"]),
+                          ("joint", m_card["rec_trace"], m_cpu["rec_trace"]),
+                          ("refine", m_card["refine_trace"],
+                           m_cpu["refine_trace"])):
+            a, b = a.cpu().double(), b.double()
+            par[key] = float(((a - b).abs() / b.abs()).max())
+        flips = {}
+        for u in node_unit_names(find_node(g, pt)):
+            wc, wh = qs_card[u].wq, qs_cpu[u].wq
+            flips[u] = max(
+                float((wc.st_index.cpu() != wh.st_index).float().mean()),
+                float(((wc.alpha.cpu() >= 0) != (wh.alpha >= 0)).float()
+                      .mean()))
+        recon[kind] = dict(trace_rel=par, flips=flips, cpu_s=cpu_s,
+                           hard_loss=float(m_card["hard_loss"]))
+        print(f"  {pt} {kind}, {FISHER_ROWS} rows, {PARITY_ITERS} steps, "
+              f"card vs CPU ({cpu_s:.2f} s on the CPU): trace max rel diff "
+              + ", ".join(f"{k} {v:.3g}" for k, v in par.items())
+              + f" (gate {PARITY_RTOL:g}); hardened code flips "
+              + ", ".join(f"{u.split('.')[-1]} {v:.4g}"
+                          for u, v in flips.items())
+              + f" (gate {PARITY_FLIPS:g}); hard loss "
+              f"{recon[kind]['hard_loss']:.6g}", flush=True)
+        if max(par.values()) > PARITY_RTOL \
+                or max(flips.values()) > PARITY_FLIPS:
+            raise AssertionError(f"card vs CPU {kind}: {par} {flips}")
+    phase("fisher recon parity", t0)
+    return dict(head_scale=head_scale, grads=grads, recon=recon), \
+        (g, params, qs, cali)
+
+
+def _run_cli(torch, name, argv):
+    """cli.main(argv) in this process, its lines printed: (wall seconds,
+    final accuracy, {target: hard loss}, its standard output, kernel
+    launches during the run)."""
+    from shiftedscalequantization_tpu_torch import cli
+    print(f"  cli run {name}: python -m "
+          f"shiftedscalequantization_tpu_torch.cli {' '.join(argv)}",
+          flush=True)
+    tee = _Tee(sys.stdout)
+    _sync()
+    reset_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        final = cli.main(argv)
+    _sync()
+    wall = time.perf_counter() - t
+    out = "".join(tee.parts)
+    hard = {}
+    for line in out.splitlines():
+        if line.startswith("Reconstructed "):
+            target, rest = line[len("Reconstructed "):].split(": ", 1)
+            hard[target] = float(rest.split(" -> hard ")[1].split()[0])
+    return wall, final, hard, out, counts()
+
+
+def act_shift_sites(graph, qs, targets):
+    """{site: ActShiftQuant or what stands there} of every act site of
+    every target node (unit sites and block sites)."""
+    from shiftedscalequantization_tpu_torch.graph import BlockSpec, \
+        UnitQuant, find_node, node_unit_names
+    out = {}
+    for t in targets:
+        node = find_node(graph, t)
+        for u in node_unit_names(node):
+            if isinstance(qs[u], UnitQuant) and qs[u].aq is not None:
+                out[u] = qs[u].aq
+        if isinstance(node, BlockSpec) and qs.get(t) is not None:
+            out[t] = qs[t]
+    return out
+
+
+def cli_method_phases(torch, method_deploy_ms):
+    """Phase 29: the port's CLI with the Fisher loss and with the
+    act-shift phase (METHOD_CLI_RUNS), then the act-shift run's final
+    checkpoint served at batch 256. Returns what the result lines
+    report."""
+    import tempfile
+    import numpy as np
+    from shiftedscalequantization_tpu_torch import cli, deploy
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.graph import Flags, forward, \
+        iter_units
+    from shiftedscalequantization_tpu_torch.ops.act_quant import \
+        ActShiftQuant
+    from shiftedscalequantization_tpu_torch.utils import checkpoint as ck
+    from shiftedscalequantization_tpu_torch.utils.config import load_args
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    runs = {}
+    for name, flags in METHOD_CLI_RUNS:
+        argv = CLI_COMMON + flags + [
+            "--checkpoint_dir", os.path.join(tmp.name, name),
+            "--log_path", os.path.join(tmp.name, f"{name}.log")]
+        wall, final, hard, _, launches = _run_cli(torch, name, argv)
+        qs, done = ck.load_qstate(os.path.join(tmp.name, name, "QNN_W2_A4"),
+                                  device=DEVICE)
+        runs[name] = dict(wall_s=wall, final=final, hard_loss=hard,
+                          done=len(done),
+                          fake_quant_act=launches["fake_quant_act"],
+                          fake_quant_weight=launches["fake_quant_weight"])
+        print(f"  cli run {name}: {wall:.2f} s; final {final}; fake_quant "
+              f"launches act {launches['fake_quant_act']}, weight "
+              f"{launches['fake_quant_weight']}; hard losses "
+              + ", ".join(f"{k.removeprefix('model.')} {v:.6g}"
+                          for k, v in hard.items()), flush=True)
+        if len(hard) != 9 or len(done) != 9 or not all(
+                math.isfinite(v) for v in hard.values()):
+            raise AssertionError(f"cli {name}: hard losses {hard}, done "
+                                 f"{len(done)}")
+    # qs: the act-shift run's final state (the last run)
+    args = load_args(CLI_COMMON + METHOD_CLI_RUNS[1][1])
+    graph, raw, cfg = cli.build_everything(args, device=DEVICE)
+    targets = Q.reconstruction_targets(graph)
+    sites = act_shift_sites(graph, qs, targets)
+    hard_sites = [k for k, v in sites.items()
+                  if isinstance(v, ActShiftQuant) and v.hard_targets]
+    print(f"  act-shift run: {len(hard_sites)} of {len(sites)} act sites of "
+          f"its {len(targets)} targets hold a hardened ActShiftQuant",
+          flush=True)
+    if len(hard_sites) != len(sites) or len(sites) != 16:
+        raise AssertionError(f"act-shift sites {sorted(sites)}, hardened "
+                             f"{sorted(hard_sites)}")
+    phase("cli fisher and act-shift", t0)
+
+    # the act-shift run's final checkpoint served at batch 256
+    t0 = time.perf_counter()
+    params, _ = Q.prepare_model(graph, raw, cfg, device=DEVICE)
+    _, test = cli.build_data(args)
+    x = torch.as_tensor(np.concatenate([b for b, _ in test]), device=DEVICE)
+    tmp.cleanup()
+    aflags = Q.act_flags(graph, cfg, base=Flags().all_weights(graph))
+    n_cands = sum(len(v.shift_targets) if isinstance(v, ActShiftQuant)
+                  else 1 for k, v in
+                  ((k, getattr(qs.get(k), "aq", qs.get(k)))
+                   for k in aflags.act_on) if v is not None)
+    n_uniform = sum(type(qs[u.name].wq).__name__ == "UniformWQ"
+                    for u in iter_units(graph))
+    reset_counts()
+    sim = forward(graph, params, qs, x, aflags, device=DEVICE)
+    _sync()
+    sim_counts = counts()
+    print(f"  launches in one sim forward: {sim_counts} ({len(aflags.act_on)}"
+          f" act sites, {n_cands} candidates, {n_uniform} UniformWQ unit)",
+          flush=True)
+    if n_cands != 2 * 16 + 1:
+        raise AssertionError(f"act-shift sim forward: {n_cands} candidates")
+    want = dict.fromkeys(sim_counts, 0)
+    want.update(fake_quant_act=n_cands, fake_quant_weight=n_uniform)
+    check_counts(sim_counts, **want)
+    os.environ.update(SSQ_STEM_KERNEL="1", SSQ_PACKED="1", SSQ_DW_KERNEL="0",
+                      SSQ_STEM_1PASS="0")
+    dp = deploy.build_deploy_params(graph, params, qs, device=DEVICE)
+    steps = deploy.act_steps_from_qstate(graph, qs)
+    plan = deploy.make_deploy_plan(graph, dp, steps, input_hw=(HW, HW))
+    dp_cpu, steps_cpu = to_cpu(torch, deploy, dp, steps)
+    plan_cpu = deploy.make_deploy_plan(graph, dp_cpu, steps_cpu,
+                                       input_hw=(HW, HW))
+    units = [u.name for u in iter_units(graph)]
+    kinds = [plan[u][0] for u in units]
+    kind_counts = {k: kinds.count(k) for k in sorted(set(kinds))}
+    if [plan[u] for u in units] != [plan_cpu[u] for u in units] \
+            or plan["__int8_sites__"] != plan_cpu["__int8_sites__"]:
+        raise AssertionError("act-shift plan differs from its CPU plan")
+    per_channel = [k for k, v in steps.items() if v[0].numel() > 1]
+    if set(per_channel) != set(sites) or set(per_channel) & (
+            plan["__int8_sites__"] | plan["__biased_sites__"]):
+        raise AssertionError(f"per-channel sites {sorted(per_channel)}")
+    want_launches = plan_launches(graph, plan_cpu)
+    xg = torch.round(x[:8] * 8) / 8
+    reset_counts()
+    host = deploy.deploy_forward(graph, dp_cpu, steps_cpu, xg.cpu(),
+                                 plan=plan_cpu, device="cpu")
+    want_unfused = counts()["unfused"]
+    reset_counts()
+    dep = deploy.deploy_forward(graph, dp, steps, x, plan=plan,
+                                device=DEVICE)
+    _sync()
+    dep_counts = counts()
+    print(f"  plan kinds {kind_counts} (equal to the CPU plan; "
+          f"{len(per_channel)} per-channel sites); deploy launches "
+          f"{ {k: v for k, v in dep_counts.items() if v} }, from the plan "
+          f"{want_launches}, requants left to PyTorch elementwise "
+          f"{dep_counts['unfused']} (CPU deploy {want_unfused})", flush=True)
+    check_counts(dep_counts, **want_launches)
+    if dep_counts["unfused"] != want_unfused:
+        raise AssertionError(f"unfused {dep_counts['unfused']}, want "
+                             f"{want_unfused}")
+    finite = bool(torch.isfinite(sim).all()) and bool(
+        torch.isfinite(dep).all())
+    rel = logit_rel_mse(torch, dep, sim)
+    agree = float((sim.argmax(-1) == dep.argmax(-1)).double().mean())
+    deploy_ms = time_cuda(lambda: deploy.deploy_forward(
+        graph, dp, steps, x, plan=plan, device=DEVICE), iters=3, warmup=1)
+    card = deploy.deploy_forward(graph, dp, steps, xg, plan=plan,
+                                 device=DEVICE)
+    c_rel = logit_rel_mse(torch, card.cpu(), host)
+    c_same = bool(torch.equal(card.cpu().argmax(-1), host.argmax(-1)))
+    print(f"  served the act-shift run's checkpoint: batch {x.shape[0]}, "
+          f"deploy forward {deploy_ms:.3f} ms/batch (the method path's, "
+          f"phase 13: {method_deploy_ms:.3f}); deploy vs sim logit rel-MSE "
+          f"{rel:.4e} (gate {RELMSE_GATE:g}; the JAX package's own on the "
+          f"recipe {JAX_ACT_SHIFT_GAP:.4e}), top-1 agreement {agree:.4f}, "
+          f"finite {finite}; card vs CPU deploy on 8 grid images: rel-MSE "
+          f"{c_rel:.4e} (gate {CARD_CPU_GATE:g}), same top-1 {c_same}",
+          flush=True)
+    if not (finite and rel <= RELMSE_GATE) or x.shape[0] != BATCH:
+        raise AssertionError(f"act-shift serving: rel-MSE {rel}, finite "
+                             f"{finite}")
+    if not (c_rel <= CARD_CPU_GATE and c_same):
+        raise AssertionError(f"act-shift card vs CPU deploy: rel-MSE "
+                             f"{c_rel}, same top-1 {c_same}")
+    phase("act-shift serving", t0)
+    return dict(runs=runs, sim_counts=sim_counts,
+                act_shift_sites=len(sites), plan_kinds=kind_counts,
+                launches={k: v for k, v in dep_counts.items() if v},
+                deploy_ms=deploy_ms, deploy_sim_rel_mse=rel,
+                deploy_sim_top1_agreement=agree, card_cpu_rel_mse=c_rel,
+                jax_gap=JAX_ACT_SHIFT_GAP)
+
+
+def search_phase(torch, state):
+    """Phase 30: the selection searches on SEARCH_UNIT with SEARCH_ROWS
+    cached rows, on the card and on the CPU."""
+    from shiftedscalequantization_tpu_torch.graph import Flags, find_node
+    from shiftedscalequantization_tpu_torch.recon import capture
+    from shiftedscalequantization_tpu_torch.recon import search as S
+    t0 = time.perf_counter()
+    g, params, qs, cali = state
+    spec = find_node(g, SEARCH_UNIT)
+    ci, co = capture.capture_io(g, params, qs, SEARCH_UNIT,
+                                cali[:SEARCH_ROWS], Flags(), Flags(),
+                                batch_size=64, device=DEVICE)
+    qp, w = qs[SEARCH_UNIT].wq.qp, params[SEARCH_UNIT]["w"]
+    host = [dataclasses.replace(qp, delta=qp.delta.cpu(),
+                                zero_point=qp.zero_point.cpu()), w.cpu()]
+    out = {}
+
+    def per_pair(cands, w, p):
+        err = (cands.double() - w.double()[None]).abs() ** p
+        return err.reshape(err.shape[:3] + (-1,)).sum(-1)
+
+    # dist_selection's candidates: steps delta / qParam, qParam (1, 1/2)
+    for name, targets, p in (("weight_greedy", SHIFT_TARGETS, 2.4),
+                             ("dist", (1.0, 2.0), 2.0)):
+        _sync()
+        t = time.perf_counter()
+        if name == "dist":
+            sel, loss = S.dist_selection(qp, w)
+            hsel, hloss = S.dist_selection(*host)
+        else:
+            sel, loss = S.weight_greedy_selection(
+                w, S.candidate_weights(qp, w, targets), p=p)
+            hsel, hloss = S.weight_greedy_selection(
+                host[1], S.candidate_weights(*host, targets), p=p)
+        _sync()
+        sec = time.perf_counter() - t
+        pp = per_pair(S.candidate_weights(*host, targets), host[1], p)
+        tie = (pp[0] - pp[1]).abs() <= SEARCH_TIE * pp.abs().amax(0)
+        diff = sel.cpu() != hsel
+        out[name] = dict(s=sec, differ=int(diff.sum()),
+                         differ_at_ties=int((diff & tie).sum()),
+                         ties=int(tie.sum()), pairs=int(diff.numel()),
+                         loss=float(loss), cpu_loss=float(hloss))
+        print(f"  {name} {tuple(sel.shape)}: {sec:.3f} s (card and CPU); "
+              f"{out[name]['differ']} of {diff.numel()} selections differ, "
+              f"{out[name]['differ_at_ties']} of them at pairs whose losses "
+              f"tie within {SEARCH_TIE:g} ({out[name]['ties']} such pairs)",
+              flush=True)
+        if bool((diff & ~tie).any()):
+            raise AssertionError(f"{name} selections differ off ties")
+    cands = S.candidate_weights(qp, w, SHIFT_TARGETS)
+    hcands = cands.cpu()
+    _sync()
+    t = time.perf_counter()
+    sel, loss = S.output_greedy_selection(spec, cands, ci, co, sweeps=1)
+    _sync()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    hsel, hloss = S.output_greedy_selection(spec, hcands, ci.cpu(), co.cpu(),
+                                            sweeps=1)
+    cpu_s = time.perf_counter() - t
+    base = S._unit_out(spec, S.apply_selection(
+        cands, torch.zeros_like(sel)), ci)
+    base_loss = float((torch.abs(base - co) ** 2).sum(-1).mean())
+    rel = abs(float(loss) - float(hloss)) / abs(float(hloss))
+    out["output_greedy"] = dict(
+        card_s=card_s, cpu_s=cpu_s, loss=float(loss), cpu_loss=float(hloss),
+        base_loss=base_loss, rel=rel,
+        differ=int((sel.cpu() != hsel).sum()), pairs=int(sel.numel()))
+    print(f"  output_greedy (one sweep over {spec.in_ch} input channels, "
+          f"{SEARCH_ROWS} rows): card {card_s:.3f} s, CPU {cpu_s:.2f} s; "
+          f"loss {float(loss):.6g} (all-base {base_loss:.6g}; CPU "
+          f"{float(hloss):.6g}, rel diff {rel:.3g}, gate {SEARCH_RTOL:g}); "
+          f"{out['output_greedy']['differ']} selections differ", flush=True)
+    if not (float(loss) <= base_loss and rel <= SEARCH_RTOL):
+        raise AssertionError(f"output greedy: {out['output_greedy']}")
+    phase("search", t0)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2732,6 +3249,12 @@ def main():
     rg = regnet_phases(torch, gen)
     pair = pair_phase(torch, gen)
     rg_cli = regnet_cli_phases(torch)
+
+    # ---- Fisher losses, the act-shift phase, the searches --------------
+    fisher, fisher_state = fisher_phase(torch, gen)
+    method_cli = cli_method_phases(torch, sdeploy_ms)
+    search = search_phase(torch, fisher_state)
+    del fisher_state
     unfused.update({f"regnetx_600m_{s}": r["unfused"]
                     for s, r in rg["served"].items()})
     unfused["resnet18_w4a8"] = pair["unfused"]
@@ -2848,7 +3371,13 @@ def main():
                                "weight": sim_counts["fake_quant_weight"]},
          "launches_cli": {n: {"act": r["fake_quant_act"],
                               "weight": r["fake_quant_weight"]}
-                          for n, r in cli_res["runs"].items()},
+                          for n, r in (*cli_res["runs"].items(),
+                                       *method_cli["runs"].items())},
+         # one sim forward of the act-shift state: each act-shift site
+         # once per candidate
+         "launches_act_shift": {
+             "act": method_cli["sim_counts"]["fake_quant_act"],
+             "weight": method_cli["sim_counts"]["fake_quant_weight"]},
          "max_abs_err": max(r["err"] for r in fq_rows),
          "ms": per_forward(fq_rows, "ms"),
          "plain_ms": per_forward(fq_rows, "plain_ms"),
@@ -2864,14 +3393,17 @@ def main():
          "launches": slaunches["int8_conv"] + launches["int8_conv"]
          + mlaunches["int8_conv"] + sum(
              r["launches"].get("int8_conv", 0) for r in rg_served.values())
-         + pair["launches"]["int8_conv"],
+         + pair["launches"]["int8_conv"]
+         + method_cli["launches"].get("int8_conv", 0),
          "launches_by_path": {
              "resnet18_shifted": slaunches["int8_conv"],
              "resnet18": launches["int8_conv"],
              "mobilenetv2": mlaunches["int8_conv"],
              **{f"regnetx_600m_{s}": r["launches"].get("int8_conv", 0)
                 for s, r in rg_served.items()},
-             "resnet18_w4a8": pair["launches"]["int8_conv"]},
+             "resnet18_w4a8": pair["launches"]["int8_conv"],
+             "resnet18_act_shift": method_cli["launches"].get("int8_conv",
+                                                              0)},
          "max_abs_err": max(r["err"] for r in conv_rows),
          "ms": path_time(conv_rows),
          "ms_sums_mode": sums_mode(conv_rows),
@@ -2962,7 +3494,10 @@ def main():
                                  if k != "group_rows"},
                       "regnet_group_conv_shapes": g_rows,
                       "resnet18_w4a8": pair,
-                      "regnet_cli": rg_cli}),
+                      "regnet_cli": rg_cli,
+                      "fisher": fisher,
+                      "cli_fisher_act_shift": method_cli,
+                      "search": search}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

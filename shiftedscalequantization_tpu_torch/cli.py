@@ -5,15 +5,16 @@ The shifted-scale pipelines of the reference (ShiftedScaleQuant.py
 channelShift_wLoss:185-286 / channelShift_wMSE:119-183), the BRECQ
 pipeline (Brecq/main_imagenet.py: weight reconstruction, then the act
 phase) and the two-phase variant, with the JAX package's flags and printed
-lines. ``--platform auto`` runs on the CUDA card and raises without one;
-``--platform cpu`` runs on the CPU.
+lines: the Fisher losses (``--opt_mode fisher_diag|fisher_full``) and the
+act phases (``--act_mode delta|shift``, ``--act_shift_targets``,
+``--act_bits_overrides``) included. ``--platform auto`` runs on the CUDA
+card and raises without one; ``--platform cpu`` runs on the CPU.
 
 Run:  python -m shiftedscalequantization_tpu_torch.cli --arch resnet18
       --dataset cifar10 --mode fused --n_bits_w 2 --n_bits_a 4 ...
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: ``--pretrained *.pth`` (the torchvision importer), ``--opt_mode
-fisher_*`` and ``--act_mode shift``.
+Not ported yet, raising NotImplementedError that names its ROADMAP item:
+``--pretrained *.pth`` (the torchvision importer).
 """
 from __future__ import annotations
 
@@ -25,13 +26,13 @@ import torch
 
 from . import quantize as QZ
 from ._device import resolve_device
-from .data.datasets import build_cifar10_data, build_imagenet_data
+from .data.datasets import DATA_ITEM, build_cifar10_data, \
+    build_imagenet_data
 from .graph import Flags
 from .models import zoo
 from .quantize import QuantConfig, act_flags, calibrate_acts, prepare_model, \
     reconstruction_targets
 from .recon import ReconSettings, reconstruct_model
-from .recon.engine import ACT_SHIFT_ITEM, FISHER_ITEM, NOT_PORTED
 from .utils import checkpoint as ckpt
 from .utils.config import load_args, parse_shift_targets
 from .utils.eval import get_train_samples, validate_model
@@ -49,8 +50,8 @@ def build_everything(args, device="cuda"):
     if getattr(args, "pretrained", None) \
             and args.pretrained.endswith((".pth", ".pth.tar")):
         raise NotImplementedError(
-            "--pretrained with a torch checkpoint (utils/torch_import) "
-            + NOT_PORTED.format(item="item 11, import and data"))
+            f"--pretrained with a torch checkpoint (utils/torch_import) "
+            f"{DATA_ITEM}")
     if getattr(args, "pretrained", None):
         # trained raw params in the trainer's npz layout (the reference's
         # hubconf pretrained-checkpoint role, trash/hubconf.py:16-68)
@@ -83,22 +84,9 @@ def build_data(args):
                                synthetic=args.synthetic_data)
 
 
-def _refuse_unported(args):
-    """Raise before any work for a flag whose code is not ported yet."""
-    if args.eval_only or args.make_checkpoint or args.mode == "mse":
-        return
-    if args.opt_mode != "mse":
-        raise NotImplementedError(f"--opt_mode {args.opt_mode} "
-                                  + NOT_PORTED.format(item=FISHER_ITEM))
-    if args.act_mode == "shift" and args.act_quant and args.iters_a > 0:
-        raise NotImplementedError("--act_mode shift "
-                                  + NOT_PORTED.format(item=ACT_SHIFT_ITEM))
-
-
 def main(argv=None):
     args = load_args(argv)
     device = resolve_device("cpu" if args.platform == "cpu" else "cuda")
-    _refuse_unported(args)
     seed_all(args.seed)
     log = RunLog(args.log_path or f"{args.run_device.replace(':', '_')}.log")
     timer = Timer()
@@ -240,7 +228,8 @@ def main(argv=None):
         cache_dtype=cache_dtype, device=device)
 
     # activation phase: 'delta' = BRECQ act-scale learning
-    # (main_imagenet.py:233-244)
+    # (main_imagenet.py:233-244), 'shift' = activation shifted-scale
+    # selection (channelShift_wLoss_feature, ShiftedScaleQuant.py:288-353)
     act_mode = args.act_mode
     if act_mode == "auto":
         act_mode = "delta" if args.mode == "brecq" else "none"

@@ -36,7 +36,10 @@ unit) runs in the kernel's epilogue, with the terms ``quantize_out``
 builds; ``quantize_out.unfused`` counts the requants left to PyTorch
 elementwise ops. The plan still names the kinds the JAX package would
 pick for other graphs; ``float_s2d`` and pair transport raise
-NotImplementedError when reached. A plan also keeps, under
+NotImplementedError when reached. A hardened ``ActShiftQuant`` site has
+a per-channel step: it travels as an f32 edge and its consumers take the
+``float`` kind, as in the JAX package; an integer feed handed a
+per-channel step raises. A plan also keeps, under
 ``__kernel_consts__``, the launch
 constants of its ``stem_fused`` and ``dw_int8`` units (weight layouts,
 folded scales, the grid's reciprocal), built once when the plan is made,
@@ -58,6 +61,7 @@ from ._device import resolve_device
 from .graph import BlockSpec, Graph, OpSpec, UnitQuant, UnitSpec, \
     _activation, _fp32, conv2d, global_avg_pool, iter_units, max_pool
 from .ops import wquant as W
+from .ops.act_quant import ActShiftQuant
 from .ops.cuda.depthwise import dw_conv3x3_int8_prepared, prepare_dw
 from .ops.cuda.group_conv import int8_group_conv
 from .ops.cuda.int_matmul import int8_conv
@@ -234,19 +238,35 @@ def build_deploy_params(graph: Graph, params, qstate,
 
 def act_steps_from_qstate(graph: Graph, qstate) -> dict:
     """site name -> (delta, zero_point, n_bits) for every calibrated act
-    quantizer (unit sites and block sites)."""
+    quantizer (unit sites and block sites). A hardened ActShiftQuant site
+    gives its per-channel step (``effective_delta``)."""
     steps = {}
     for name, v in qstate.items():
         aq = v.aq if isinstance(v, UnitQuant) else v
-        if aq is not None:
+        if isinstance(aq, ActShiftQuant):
+            steps[name] = (aq.effective_delta(), aq.qp.zero_point,
+                           aq.qp.n_bits)
+        elif aq is not None:
             steps[name] = (aq.delta, aq.zero_point, aq.n_bits)
     return steps
 
 
 def _scalar_step(st) -> bool:
-    """True when the site's (delta, zp) are scalars."""
+    """True when the site's (delta, zp) are scalars. A per-channel step
+    (hardened ActShiftQuant) does not factor out of the consumer's conv
+    as an output scale, so such a site travels as an f32 edge."""
     delta, zp, _ = st
     return delta.numel() == 1 and zp.numel() == 1
+
+
+def _scalar_feed(st, unit: str):
+    """(delta, zp, n_bits) of a site feeding an integer kernel, which
+    reads one step and one zero point; a per-channel step raises."""
+    if not _scalar_step(st):
+        raise ValueError(f"{unit}: an integer feed needs a scalar act step, "
+                         f"got delta {tuple(st[0].shape)}, zero point "
+                         f"{tuple(st[1].shape)}")
+    return st
 
 
 def _first(t) -> float:
@@ -859,7 +879,7 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
         if kind_plan == "dw_int8":
             # depthwise conv + epilogue + requant onto the unit's own grid
             # in one kernel; quantize_out passes its codes through
-            delta, zp, n_bits = act_steps[feed_site]
+            delta, zp, n_bits = _scalar_feed(act_steps[feed_site], spec.name)
             vkind, t, _ = v
             xi = t if vkind == "codes" \
                 else _quant_centered(to_float(v), delta, zp, n_bits)
@@ -872,7 +892,7 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
             # 1x1 convs read their (strided) NHWC rows in the kernel; codes
             # go in as int8 (their step scales the epilogue), f32 feeds are
             # quantized on the way in
-            delta, zp, n_bits = act_steps[feed_site]
+            delta, zp, n_bits = _scalar_feed(act_steps[feed_site], spec.name)
             zpv = zp.reshape(-1)[0].to(torch.float32)
             dv = delta.reshape(-1)[0].to(torch.float32)
             vkind, t, _ = v
@@ -891,13 +911,19 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
         if kind_plan in ("int8", "bf16_codes", "int8_bd", "int8_pair"):
             # int8_pair's 8-bit unsigned feed arrives as biased codes with
             # offset 128: one launch computes its 16*hi + lo sum
-            delta, zp, n_bits = act_steps[feed_site]
+            delta, zp, n_bits = _scalar_feed(act_steps[feed_site], spec.name)
             xi, offset = int_feed(v, delta, zp, n_bits)
             return _int_unit(spec, d, xi, offset, delta,
                              block_diagonal=kind_plan == "int8_bd")
-        # float / float_1p: f32 conv with integer-code weights, TF32 off;
+        # float / float_1p: conv with integer-code weights, TF32 off;
         # float_1p rounds the activation to bf16 first, as the JAX single
-        # bf16 pass does (the weight codes are bf16-exact)
+        # bf16 pass does (the weight codes are bf16-exact). A float unit
+        # sums in float64, rounded once to f32: on an f32 edge of a
+        # per-channel site (codes times a step and its halves) the
+        # products and sums of integer-code weights are exact in float64,
+        # so the card and the CPU agree bit for bit in any summation
+        # order, where f32 sums (or cuDNN's Winograd) round per device
+        # and flip the next site's codes
         xf = materialize(v)
         if kind_plan == "float_1p":
             xf = xf.to(torch.bfloat16).to(torch.float32)
@@ -909,12 +935,14 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
             ratio = (d.group_scales / d.scale[None, :]).reshape(
                 (d.w_groups.shape[0], -1) + (1,) * (w_eff.ndim - 1))
             w_eff = (d.w_groups.to(torch.float32) * ratio).sum(dim=0)
+        if kind_plan == "float":
+            xf, w_eff = xf.double(), w_eff.double()
         if spec.kind == "conv":
             out = conv2d(xf, w_eff, None, spec.stride, spec.padding,
                          spec.groups)
         else:
             out = xf @ w_eff.T
-        return _Pending(out, d.scale, d.bias)
+        return _Pending(out.float(), d.scale, d.bias)
 
     def run_block(node: BlockSpec, v):
         res_v = None

@@ -111,10 +111,11 @@ def find_node(graph: Graph, name: str) -> Node:
 
 @dataclasses.dataclass
 class UnitQuant:
-    """Per-unit quantization state: weight quantizer, act QParams (None
-    until calibrated), and the per-out-channel output affine."""
+    """Per-unit quantization state: weight quantizer, act quantizer
+    (QParams, or an ActShiftQuant after the act-shift phase; None until
+    calibrated), and the per-out-channel output affine."""
     wq: Any
-    aq: Optional[QParams]
+    aq: Any
     alpha_out: Optional[torch.Tensor]
     beta_out: Optional[torch.Tensor]
     raw_zp: Optional[torch.Tensor] = None
@@ -222,7 +223,7 @@ class _Ctx:
         self.inject = inject
 
 
-def _apply_act_quant(name: str, x, aq: Optional[QParams], ctx: _Ctx):
+def _apply_act_quant(name: str, x, aq, ctx: _Ctx):
     if ctx.mode == "init_act":
         qp = Q.init_act_qparams(x, ctx.act_bits[name], sym=ctx.act_sym,
                                 scale_method=ctx.act_method)
@@ -230,7 +231,9 @@ def _apply_act_quant(name: str, x, aq: Optional[QParams], ctx: _Ctx):
         return fake_quant(x, qp)
     if aq is None:
         raise ValueError(f"act quantizer for {name!r} not calibrated")
-    return fake_quant(x, aq)
+    if isinstance(aq, QParams):
+        return fake_quant(x, aq)
+    return aq(x)   # a callable quantizer (ops/act_quant.ActShiftQuant)
 
 
 def _unit_forward(spec: UnitSpec, p, uq: UnitQuant, x, ctx: _Ctx):

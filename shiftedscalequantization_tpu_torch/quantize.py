@@ -197,8 +197,9 @@ def harmonize_residual_chains(graph: Graph, qstate):
     """
     def scalar_aq(name):
         uq = qstate.get(name)
-        if not isinstance(uq, UnitQuant) or uq.aq is None:
-            return None
+        if not isinstance(uq, UnitQuant) or not isinstance(uq.aq,
+                                                           Q.QParams):
+            return None     # uncalibrated, or per-channel (ActShiftQuant)
         return uq.aq if uq.aq.delta.numel() == 1 else None
 
     parent = {}

@@ -15,16 +15,20 @@ Two capture routes feed reconstruction:
     accelerator to compile one graph; here it saves the FP pass per
     target.
 
+``capture_grads`` gives the Fisher losses their weights: the gradient
+of the KL divergence between the quantized-till-target and the FP
+network outputs at the target's output.
+
 Batches cover every row: the last partial batch is kept. (The JAX package
 zero-pads it to keep one compiled shape; PyTorch runs it at its own size.)
-``capture_grads`` (Fisher losses) is not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
 from .._device import resolve_device
-from ..graph import Flags, Graph, forward, forward_multi_capture, iter_units
+from ..graph import Flags, Graph, _fp32, forward, forward_inject, \
+    forward_multi_capture, iter_units, prefix_flags_till
 from ..ops.wquant import apply_weight_quant
 
 
@@ -132,3 +136,39 @@ class CaptureSession:
                                   cache_dtype))
         cached_out = self._fp_outs[target] if have_fp else torch.cat(outs)
         return torch.cat(inps), _cast(cached_out, cache_dtype)
+
+
+def capture_grads(graph: Graph, params, qstate, target: str, cali_data,
+                  batch_size: int = 32, act_quant: bool = False,
+                  damping: float = 1.0, device="cuda"):
+    """Fisher-information proxy: |d KL(fp || quant) / d t| + ``damping``
+    per row of ``cali_data``, where t is ``target``'s output with the
+    network quantized up to and including ``target``
+    (``prefix_flags_till``). The KL is F.kl_div(log_softmax(quant),
+    softmax(fp), 'batchmean') over batches of ``batch_size`` rows; its
+    mean divides by ``batch_size`` also for a short last batch, as the
+    JAX package's zero-padded batch does (rows are independent, so the
+    padding adds nothing else). The gradient is taken through
+    ``forward_inject`` (targets nested inside blocks included), with TF32
+    off in the forward and the backward."""
+    dev = resolve_device(device)
+    qflags = prefix_flags_till(graph, target, act_quant=act_quant)
+    outs = []
+    for xb in _batches(cali_data, batch_size):
+        xb = xb.to(dev)
+        with torch.no_grad():
+            p_fp = torch.softmax(forward(graph, params, qstate, xb, Flags(),
+                                         device=dev), dim=1)
+            logp = torch.log(torch.clamp(p_fp, min=1e-12))
+            _, t = forward(graph, params, qstate, xb, qflags,
+                           capture=target, device=dev)
+        t = t.detach().requires_grad_(True)
+        with _fp32():
+            out_q = forward_inject(graph, params, qstate, xb, target, t,
+                                   qflags)
+            kl = (p_fp * (logp - torch.log_softmax(out_q, dim=1))).sum() \
+                / batch_size
+            g, = torch.autograd.grad(kl, t)
+        outs.append(torch.abs(g) + damping)
+        del out_q, kl, t
+    return torch.cat(outs)

@@ -16,7 +16,14 @@ with Adam against cached FP outputs, then hardens them:
   * mode 'round_refine': the rounding logits of baked AdaRound units.
 
 ``reconstruct_act_delta`` learns a node's activation steps (the BRECQ act
-phase) with Adam and a cosine learning-rate schedule.
+phase) with Adam and a cosine learning-rate schedule;
+``reconstruct_act_shift`` learns a per-channel selection among shifted
+activation steps at every act site of a node (``ops/act_quant``).
+
+The loss is ``rec_loss``: 'mse' (the L_p loss) or the Fisher forms
+'fisher_diag' / 'fisher_full', weighted by the gradients
+``recon.capture.capture_grads`` caches (``cached_grads``), whose rows are
+taken with the same indices as the input and output caches.
 
 The loop is a plain Python loop with ``torch.optim.Adam(lr=s.lr)``, which
 computes optax.adam's update (the same moments and bias corrections, eps
@@ -28,11 +35,6 @@ the same rows; the JAX engine's ``fold_in(key, 877)`` / ``(key, 991)``
 sub-streams of the warm start and the refine are ``_fold_in(seed, 877)`` /
 ``(seed, 991)``. The whole step runs with TF32 off (``graph._fp32``), its
 backward included.
-
-Not ported yet: the Fisher loss forms (which need ``capture_grads``)
-raise NotImplementedError naming their ROADMAP item; the act-shift phase
-(``reconstruct_act_shift``, queue 1 item 8) is not here, and the pipeline
-refuses it.
 """
 from __future__ import annotations
 
@@ -44,14 +46,10 @@ import numpy as np
 import torch
 
 from ..graph import BlockSpec, Flags, UnitQuant, _fp32, apply_node, \
-    find_node, node_unit_names
+    apply_node_multi_capture, find_node, node_unit_names
 from ..ops import quant as Q
 from ..ops import wquant as W
-
-NOT_PORTED = ("is not ported yet (ROADMAP.md, 'Open items', queue 1: "
-              "{item})")
-ACT_SHIFT_ITEM = "item 8, ops/act_quant.py"
-FISHER_ITEM = "item 4, capture_grads and the Fisher losses"
+from ..ops.act_quant import init_act_shift
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,13 +92,20 @@ def lp_loss_cl(pred, tgt, p):
 
 
 def rec_loss_fn(pred, tgt, grad, kind: str, p: float):
-    """Reconstruction loss: 'mse' is lp_loss_cl; the Fisher forms need
-    cached gradients (capture_grads), not ported yet."""
+    """Reconstruction loss forms (reference layer_recon.py:142-150),
+    channels last: 'mse' is lp_loss_cl (also the fallback when ``grad``
+    is None); 'fisher_diag' weights the squared error by grad^2;
+    'fisher_full' by the per-row dot of |error| and |grad|, over 100."""
     if kind == "mse" or grad is None:
         return lp_loss_cl(pred, tgt, p)
-    if kind in ("fisher_diag", "fisher_full"):
-        raise NotImplementedError(f"rec_loss {kind!r} "
-                                  + NOT_PORTED.format(item=FISHER_ITEM))
+    if kind == "fisher_diag":
+        return (((pred - tgt) ** 2) * (grad ** 2)).sum(dim=-1).mean()
+    if kind == "fisher_full":
+        a = torch.abs(pred - tgt)
+        g = torch.abs(grad)
+        dot = (a * g).sum(dim=tuple(range(1, a.ndim))).reshape(
+            (-1,) + (1,) * (a.ndim - 1))
+        return (dot * a * g).mean() / 100.0
     raise ValueError(kind)
 
 
@@ -301,16 +306,28 @@ def _fold_in(seed: int, data: int) -> int:
         1, np.uint64)[0] >> 1)
 
 
-def _eval_rec(node, params, qstate, flags, xb, yb, s, p_norm):
+def _eval_rec(node, params, qstate, flags, xb, yb, gb, s, p_norm):
     with torch.no_grad():
         pred = apply_node(node, params, qstate, xb, flags)
-        return rec_loss_fn(pred, yb, None, s.rec_loss, p_norm)
+        return rec_loss_fn(pred, yb, gb, s.rec_loss, p_norm)
+
+
+def _rows(seed: int, n: int, batch: int, iters: int, device):
+    """Every step's minibatch rows, drawn in order from a CPU generator
+    seeded with ``seed`` (the card and the CPU draw the same) and copied
+    to ``device`` once."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.stack([torch.randperm(n, generator=gen)[:batch]
+                        for _ in range(iters)]).to(device)
 
 
 def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
-                     cached_out, s: ReconSettings, seed: int = 0):
+                     cached_out, s: ReconSettings, seed: int = 0,
+                     cached_grads=None):
     """Reconstruct one node from its cached (input, FP output) rows; the
-    node runs where the caches lie. Returns (new_qstate, metrics):
+    node runs where the caches lie. ``cached_grads`` (capture_grads, one
+    row per cached row) weights the Fisher loss forms; without them every
+    form is 'mse'. Returns (new_qstate, metrics):
     ``rec_trace`` (the reconstruction loss of each step, a tensor),
     ``init_loss`` (the loss of the incoming quantizers), ``soft_loss`` and
     ``hard_loss`` on the first batch, ``selection_ratio`` and, when they
@@ -318,19 +335,18 @@ def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
     ``refine_trace``."""
     if s.mode not in ("fused", "brecq", "shift", "round", "round_refine"):
         raise ValueError(f"reconstruction mode {s.mode!r}")
-    if s.rec_loss != "mse":
-        raise NotImplementedError(f"rec_loss {s.rec_loss!r} "
-                                  + NOT_PORTED.format(item=FISHER_ITEM))
     node = find_node(graph, node_name)
     is_block = isinstance(node, BlockSpec)
     unit_names = node_unit_names(node)
     p_norm = s.p if s.p is not None else (2.0 if is_block else 1.0)
     xb0 = cached_inp[: s.batch_size].float()
     yb0 = cached_out[: s.batch_size].float()
+    gb0 = None if cached_grads is None \
+        else cached_grads[: s.batch_size].float()
     init_loss = _eval_rec(node, params, qstate,
                           Flags(weight_on=frozenset(unit_names),
                                 output_affine=s.opt_output_affine),
-                          xb0, yb0, s, p_norm)
+                          xb0, yb0, gb0, s, p_norm)
 
     # fused warm start: a short shift pre-solve whose solved selection
     # re-seeds the fused init (coarse candidate sets only)
@@ -346,7 +362,7 @@ def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
                 lr=s.warmstart_lr if s.warmstart_lr else s.lr)
             qs_ws, warm_metrics = reconstruct_node(
                 graph, params, qstate, node_name, cached_inp, cached_out,
-                s_ws, _fold_in(seed, 877))
+                s_ws, _fold_in(seed, 877), cached_grads=cached_grads)
             warm_alphas = {n: qs_ws[n].wq.alpha for n in unit_names
                            if isinstance(qs_ws[n].wq, W.ShiftedScaleWQ)}
             s = dataclasses.replace(s, iters=s.iters - ws_iters)
@@ -379,19 +395,18 @@ def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
     metrics = {"init_loss": init_loss}
     if s.iters > 0:
         opt = torch.optim.Adam(leaves, lr=s.lr)
-        gen = torch.Generator().manual_seed(seed)
-        n = cached_inp.shape[0]
-        # every step's rows, drawn in order on the CPU and copied once
-        rows = torch.stack([torch.randperm(n, generator=gen)[: s.batch_size]
-                            for _ in range(s.iters)]).to(cached_inp.device)
+        rows = _rows(seed, cached_inp.shape[0], s.batch_size, s.iters,
+                     cached_inp.device)
         trace = []
         with _fp32():
             for i, idx in enumerate(rows):
                 xb = cached_inp[idx].float()
                 yb = cached_out[idx].float()
+                gb = None if cached_grads is None \
+                    else cached_grads[idx].float()
                 qs = _insert_theta(qstate, theta)
                 rec = rec_loss_fn(apply_node(node, params, qs, xb, flags),
-                                  yb, None, s.rec_loss, p_norm)
+                                  yb, gb, s.rec_loss, p_norm)
                 reg = _reg_terms(qs, unit_names, float(i), s)
                 opt.zero_grad(set_to_none=True)
                 (rec + reg).backward()
@@ -403,10 +418,10 @@ def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
 
     # soft and hard loss on the first batch
     metrics["soft_loss"] = _eval_rec(node, params, qstate, flags, xb0, yb0,
-                                     s, p_norm)
+                                     gb0, s, p_norm)
     qstate = _harden(qstate, unit_names, s.mode)
     metrics["hard_loss"] = _eval_rec(node, params, qstate, flags, xb0, yb0,
-                                     s, p_norm)
+                                     gb0, s, p_norm)
     metrics["selection_ratio"] = selection_ratios(qstate, unit_names)
     if s.mode == "fused":
         for n in unit_names:
@@ -423,7 +438,7 @@ def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
                                  post_round_frac=0.0)
         qstate, m2 = reconstruct_node(
             graph, params, qstate, node_name, cached_inp, cached_out, s2,
-            _fold_in(seed, 991))
+            _fold_in(seed, 991), cached_grads=cached_grads)
         metrics["hard_loss_prerefine"] = metrics["hard_loss"]
         metrics["hard_loss"] = m2["hard_loss"]
         metrics["refine_trace"] = m2.get("rec_trace")
@@ -480,10 +495,8 @@ def reconstruct_act_delta(graph, params, qstate, node_name: str,
     if s.iters > 0 and theta:      # a node without act sites learns nothing
         opt = torch.optim.Adam(list(theta.values()), lr=s.act_lr)
         sched = torch.optim.lr_scheduler.LambdaLR(opt, cosine_lr(s.iters))
-        gen = torch.Generator().manual_seed(seed)
-        n = cached_inp.shape[0]
-        rows = torch.stack([torch.randperm(n, generator=gen)[: s.batch_size]
-                            for _ in range(s.iters)]).to(cached_inp.device)
+        rows = _rows(seed, cached_inp.shape[0], s.batch_size, s.iters,
+                     cached_inp.device)
         trace = []
         with _fp32():
             for idx in rows:
@@ -498,3 +511,80 @@ def reconstruct_act_delta(graph, params, qstate, node_name: str,
         metrics["rec_trace"] = torch.stack(trace)
     return insert(qstate, {k: v.detach() for k, v in theta.items()}), \
         metrics
+
+
+# ---------------------------------------------------------------------------
+# the activation shifted-scale phase
+# ---------------------------------------------------------------------------
+
+def reconstruct_act_shift(graph, params, qstate, node_name: str,
+                          cached_inp, cached_out, s: ReconSettings,
+                          seed: int = 0, shift_targets=None):
+    """Activation shifted-scale reconstruction (the fused act branch,
+    reference layer_recon_fused_shiftedScale.py:37-57, with the intended
+    ChannelQuantAct behaviour): every act site of the node (unit sites
+    and the block site) becomes an ActShiftQuant over ``shift_targets``
+    (default ``s.act_shift_targets``), its alpha initialized per channel
+    from the first 64 cached rows run with the weights quantized and the
+    act sites off; then Adam at ``s.lr`` on the alphas against the L2
+    loss (no regularizer), the node's weights quantized and the sites
+    on, and the selections hardened. Returns (new_qstate, metrics with
+    ``rec_trace``)."""
+    if shift_targets is None:
+        shift_targets = s.act_shift_targets
+    node = find_node(graph, node_name)
+    unit_names = node_unit_names(node)
+    qstate = dict(qstate)
+    sites = [u for u in unit_names
+             if isinstance(qstate[u], UnitQuant) and qstate[u].aq is not None]
+    if isinstance(node, BlockSpec) and qstate.get(node_name) is not None:
+        sites.append(node_name)
+    in_unit = set(unit_names)
+
+    # each site's captured output, with the sites off, is the tensor its
+    # quantizer will see
+    sample = cached_inp[: min(64, cached_inp.shape[0])].float()
+    with torch.no_grad():
+        _, site_acts = apply_node_multi_capture(
+            node, params, qstate, sample,
+            Flags(weight_on=frozenset(unit_names)), sites)
+    for site in sites:
+        qp = qstate[site].aq if site in in_unit else qstate[site]
+        asq = init_act_shift(qp, site_acts[site][1], shift_targets)
+        qstate[site] = dataclasses.replace(qstate[site], aq=asq) \
+            if site in in_unit else asq
+    del site_acts
+
+    def insert(qs, th, **kw):
+        qs = dict(qs)
+        for site in sites:
+            if site in in_unit:
+                qs[site] = dataclasses.replace(qs[site], aq=dataclasses
+                                               .replace(qs[site].aq,
+                                                        alpha=th[site], **kw))
+            else:
+                qs[site] = dataclasses.replace(qs[site], alpha=th[site],
+                                               **kw)
+        return qs
+
+    theta = {site: (qstate[site].aq if site in in_unit else qstate[site])
+             .alpha.detach().clone().requires_grad_(True) for site in sites}
+    flags = Flags(weight_on=frozenset(unit_names), act_on=frozenset(sites))
+    metrics = {}
+    if s.iters > 0 and theta:
+        opt = torch.optim.Adam(list(theta.values()), lr=s.lr)
+        rows = _rows(seed, cached_inp.shape[0], s.batch_size, s.iters,
+                     cached_inp.device)
+        trace = []
+        with _fp32():
+            for idx in rows:
+                pred = apply_node(node, params, insert(qstate, theta),
+                                  cached_inp[idx].float(), flags)
+                loss = lp_loss_cl(pred, cached_out[idx].float(), 2.0)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+                trace.append(loss.detach())
+        metrics["rec_trace"] = torch.stack(trace)
+    return insert(qstate, {k: v.detach() for k, v in theta.items()},
+                  hard_targets=True), metrics

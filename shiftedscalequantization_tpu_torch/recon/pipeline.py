@@ -12,9 +12,10 @@ its own seed.
 
 Besides the engine's modes, ``mode="two_phase"`` runs a 'shift' phase and
 then a 'round' phase at twice the steps on the same cache, and
-``act_phase`` learns the activation deltas of weight-reconstructed nodes
-instead. The act-shift phase (``act_phase="shift"``) raises
-NotImplementedError naming its ROADMAP item.
+``act_phase`` learns the activation side of weight-reconstructed nodes
+instead: their act deltas ('delta') or a per-channel shifted-scale
+selection ('shift'). A Fisher ``rec_loss`` caches each target's gradients
+(``capture_grads``, the capture's batching) for its weight phases.
 """
 from __future__ import annotations
 
@@ -26,9 +27,9 @@ import torch
 
 from .._device import resolve_device
 from ..graph import Flags, Graph, find_node, node_unit_names
-from .capture import CaptureSession
-from .engine import ACT_SHIFT_ITEM, NOT_PORTED, ReconSettings, _fold_in, \
-    reconstruct_act_delta, reconstruct_node
+from .capture import CaptureSession, capture_grads
+from .engine import ReconSettings, _fold_in, reconstruct_act_delta, \
+    reconstruct_act_shift, reconstruct_node
 
 
 def node_seeds(seed: int, n: int):
@@ -53,14 +54,15 @@ def reconstruct_model(graph: Graph, params, qstate,
     weights). ``cache_dtype``: dtype of the cached activations (None keeps
     float32). ``on_node_done(name, qstate, metrics, prefix_flags)`` runs
     after each node (eval, checkpoint, logging). ``act_phase``: True or
-    'delta' learns each node's act deltas (the BRECQ act phase) instead of
-    its weights, which are assumed hardened and on via ``base_flags``.
-    Each node's metrics gain ``capture_s`` and ``recon_s`` (host seconds,
-    the card synchronised) and ``wall_s``; a two-phase node's hold the
-    round phase's, with the shift phase's under ``shift_phase``."""
-    if act_phase == "shift":
-        raise NotImplementedError("act_phase='shift' "
-                                  + NOT_PORTED.format(item=ACT_SHIFT_ITEM))
+    'delta' learns each node's act deltas (the BRECQ act phase), 'shift'
+    its act shifted-scale selection (the reference's
+    channelShift_wLoss_feature driver, ShiftedScaleQuant.py:288-353),
+    instead of its weights, which are assumed hardened and on via
+    ``base_flags``. Each node's metrics gain ``capture_s``, ``grads_s``
+    (capture_grads; none run for 'mse' and the act phases) and
+    ``recon_s`` (host seconds, the card synchronised) and ``wall_s``; a
+    two-phase node's hold the round phase's, with the shift phase's
+    under ``shift_phase``."""
     dev = resolve_device(device)
     prefix = base_flags if base_flags is not None else Flags()
     history = {}
@@ -78,7 +80,18 @@ def reconstruct_model(graph: Graph, params, qstate,
             qstate, name, prefix.weight_on, cache_dtype=cache_dtype)
         sync()
         t1 = time.perf_counter()
-        if act_phase:
+        grads = None
+        if not act_phase and settings.rec_loss != "mse":
+            # the capture's batching, so that the rows line up
+            grads = capture_grads(graph, params, qstate, name, cali_data,
+                                  batch_size=batch_size, device=dev)
+            sync()
+        t2 = time.perf_counter()
+        if act_phase == "shift":
+            qstate, metrics = reconstruct_act_shift(
+                graph, params, qstate, name, cached_inp, cached_out,
+                settings, seed=node_seed)
+        elif act_phase:
             qstate, metrics = reconstruct_act_delta(
                 graph, params, qstate, name, cached_inp, cached_out,
                 settings, seed=node_seed)
@@ -87,25 +100,27 @@ def reconstruct_model(graph: Graph, params, qstate,
             # (reference run_ShiftRecon: iters_for_round = 2 * iters)
             qstate, m1 = reconstruct_node(
                 graph, params, qstate, name, cached_inp, cached_out,
-                dataclasses.replace(settings, mode="shift"), seed=node_seed)
+                dataclasses.replace(settings, mode="shift"), seed=node_seed,
+                cached_grads=grads)
             qstate, metrics = reconstruct_node(
                 graph, params, qstate, name, cached_inp, cached_out,
                 dataclasses.replace(settings, mode="round",
                                     iters=settings.iters * 2),
-                seed=_fold_in(node_seed, 2))
+                seed=_fold_in(node_seed, 2), cached_grads=grads)
             metrics["shift_phase"] = m1
         else:
             qstate, metrics = reconstruct_node(
                 graph, params, qstate, name, cached_inp, cached_out,
-                settings, seed=node_seed)
+                settings, seed=node_seed, cached_grads=grads)
         sync()
-        del cached_inp, cached_out
+        del cached_inp, cached_out, grads
         # keep this node quantized for the captures after it
         prefix = dataclasses.replace(
             prefix, weight_on=prefix.weight_on
             | frozenset(node_unit_names(find_node(graph, name))))
-        t2 = time.perf_counter()
-        metrics.update(capture_s=t1 - t0, recon_s=t2 - t1, wall_s=t2 - t0)
+        t3 = time.perf_counter()
+        metrics.update(capture_s=t1 - t0, grads_s=t2 - t1, recon_s=t3 - t2,
+                       wall_s=t3 - t0)
         history[name] = metrics
         if on_node_done is not None:
             on_node_done(name, qstate, metrics, prefix)

@@ -13,8 +13,10 @@ module reads what the JAX package produces only through numpy
   arrays and their static fields: ``UniformWQ``, ``AdaRoundWQ``
   (``soft``, ``signed_clamp``, ``st_index``, ``shift_targets``),
   ``ShiftedScaleWQ`` (``hard_targets``, ``hard_round``, ``codes``,
-  ``dequant``) and ``InpScaleWQ``. Entries may be objects or dicts; a
-  dict quantizer is told apart by its keys.
+  ``dequant``) and ``InpScaleWQ``. Act quantizers (a unit's ``aq`` and
+  block sites) are QParams or ``ActShiftQuant`` (``qp``, ``alpha``,
+  ``shift_targets``, ``hard_targets``). Entries may be objects or dicts;
+  a dict quantizer is told apart by its keys.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 
 from .._device import resolve_device
 from ..graph import UnitQuant
+from ..ops.act_quant import ActShiftQuant
 from ..ops.quant import QParams
 from ..ops import wquant as W
 
@@ -48,6 +51,21 @@ def qparams_from_numpy(qp, device="cuda") -> QParams:
     return QParams(delta=_tensor(_get(qp, "delta"), dev),
                    zero_point=_tensor(_get(qp, "zero_point"), dev),
                    n_bits=int(_get(qp, "n_bits")), sym=bool(_get(qp, "sym")))
+
+
+def act_quantizer_from_numpy(aq, device="cuda"):
+    """One act quantizer of the JAX package (QParams or ActShiftQuant)
+    -> the port's."""
+    dev = resolve_device(device)
+    is_shift = ("shift_targets" in aq) if isinstance(aq, dict) \
+        else hasattr(aq, "shift_targets")
+    if not is_shift:
+        return qparams_from_numpy(aq, dev)
+    return ActShiftQuant(
+        qp=qparams_from_numpy(_get(aq, "qp"), dev),
+        alpha=_tensor(_get(aq, "alpha"), dev),
+        shift_targets=tuple(float(t) for t in _get(aq, "shift_targets")),
+        hard_targets=bool(_get(aq, "hard_targets")))
 
 
 def _kind(wq) -> str:
@@ -95,7 +113,7 @@ def weight_quantizer_from_numpy(wq, device="cuda"):
 
 def qstate_from_numpy(qstate: dict, device="cuda") -> dict:
     """Unit entries (those with a ``wq``) become UnitQuant; other entries
-    are block-level act QParams."""
+    are block-level act quantizers."""
     dev = resolve_device(device)
     out = {}
     for name, v in qstate.items():
@@ -104,7 +122,7 @@ def qstate_from_numpy(qstate: dict, device="cuda") -> dict:
             continue
         has_wq = ("wq" in v) if isinstance(v, dict) else hasattr(v, "wq")
         if not has_wq:
-            out[name] = qparams_from_numpy(v, dev)
+            out[name] = act_quantizer_from_numpy(v, dev)
             continue
         try:
             wq = weight_quantizer_from_numpy(_get(v, "wq"), dev)
@@ -115,5 +133,6 @@ def qstate_from_numpy(qstate: dict, device="cuda") -> dict:
                for k in ("alpha_out", "beta_out", "raw_zp")}
         out[name] = UnitQuant(
             wq=wq,
-            aq=None if aq is None else qparams_from_numpy(aq, dev), **opt)
+            aq=None if aq is None else act_quantizer_from_numpy(aq, dev),
+            **opt)
     return out

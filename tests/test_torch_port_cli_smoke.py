@@ -1,5 +1,5 @@
 """The PyTorch port's CLI (``cli.py``) on its own, on the CPU: the brecq
-(with the act-delta phase), two-phase and mse modes and the refused flags
+(with the act-delta phase), two-phase and mse modes and the refused flag
 at a tiny budget (digits, the tracked trained ResNet-18 weights, 32
 calibration rows, 8 steps a target, max scales), as ``tests/test_cli.py``
 drives the JAX package's CLI. The checkpoint flow is in
@@ -83,9 +83,7 @@ def test_mse_mode(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--pretrained", "weights.pth"], "item 11"),
-    (["--opt_mode", "fisher_diag"], "item 4"),
-    (["--act_mode", "shift", "--iters_a", "4"], "item 8")])
+    (["--pretrained", "weights.pth"], "item 11")])
 def test_unported_flags_raise(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         run(tmp_path, ["--mode", "fused", "--iters_w", "1"] + extra)

@@ -34,7 +34,8 @@ def test_port_and_smoke_script_import_no_jax():
                 "recon/engine.py", "recon/pipeline.py", "cli.py", "train.py",
                 "data/datasets.py", "data/realdata.py", "utils/config.py",
                 "utils/logging.py", "utils/eval.py", "utils/checkpoint.py",
-                "models/regnet.py", "ops/cuda/group_conv.py"):
+                "models/regnet.py", "ops/cuda/group_conv.py",
+                "ops/act_quant.py", "recon/search.py"):
         assert PORT / new in files, new
     for path in files:
         for name in _imports(path):
@@ -113,15 +114,15 @@ def test_unported_weight_quantizer_is_refused():
                            match=f"{type(wq).__name__} .*scale-table"):
             TD._hard_weight_codes(wq, w)
 
-    class ActShiftQuant:    # stands in for a JAX-package quantizer object
+    class LogScaleWQ:       # a weight quantizer type the port lacks
         qp = None
 
     class Unit:
-        wq = ActShiftQuant()
+        wq = LogScaleWQ()
         aq = None
         alpha_out = beta_out = raw_zp = None
 
-    with pytest.raises(NotImplementedError, match="ActShiftQuant"):
+    with pytest.raises(NotImplementedError, match="LogScaleWQ"):
         JI.qstate_from_numpy({"u": Unit()}, device="cpu")
 
 

@@ -154,9 +154,12 @@ def test_losses_match_jax():
             float(TE.rec_loss_fn(torch.tensor(a), torch.tensor(b), None,
                                  "mse", p)),
             float(JE.rec_loss_fn(a, b, None, "mse", p)), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="Fisher"):
-        TE.rec_loss_fn(torch.tensor(a), torch.tensor(b), torch.tensor(a),
-                       "fisher_diag", 2.0)
+    g = np.abs(a) + 1.0
+    for kind in ("fisher_diag", "fisher_full"):
+        np.testing.assert_allclose(
+            float(TE.rec_loss_fn(torch.tensor(a), torch.tensor(b),
+                                 torch.tensor(g), kind, 2.0)),
+            float(JE.rec_loss_fn(a, b, g, kind, 2.0)), rtol=1e-6)
 
 
 def _reg_state(mode, seed=0):
@@ -205,20 +208,17 @@ def test_reg_terms_match_jax(mode):
 
 
 def test_unported_modes_raise(tiny):
-    """What is still not ported raises NotImplementedError naming its
-    ROADMAP item: the Fisher loss forms (queue 1 item 4) and the act-shift
-    phase (item 8); an unknown mode is a ValueError."""
+    """An unknown mode is a ValueError (the act phases have entry points
+    of their own); an unknown loss form too."""
     ci, co = (torch.zeros((4, 8, 8, 8)),) * 2
-    with pytest.raises(NotImplementedError, match="item 4.*Fisher"):
-        TE.reconstruct_node(tiny["gt"], tiny["tparams"], tiny["tqs"], BLOCK,
-                            ci, co, TE.ReconSettings(rec_loss="fisher_full"))
     with pytest.raises(ValueError, match="act_delta"):
         TE.reconstruct_node(tiny["gt"], tiny["tparams"], tiny["tqs"], BLOCK,
                             ci, co, TE.ReconSettings(mode="act_delta"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-        TP.reconstruct_model(tiny["gt"], tiny["tparams"], tiny["tqs"],
-                             [BLOCK], tiny["tcali"], TE.ReconSettings(),
-                             act_phase="shift", device="cpu")
+    with pytest.raises(ValueError, match="fisher_half"):
+        TE.reconstruct_node(tiny["gt"], tiny["tparams"], tiny["tqs"], BLOCK,
+                            ci, co, TE.ReconSettings(rec_loss="fisher_half",
+                                                     iters=1, batch_size=4),
+                            cached_grads=torch.ones((4, 8, 8, 8)))
 
 
 # ---------------------------------------------------------------------------

@@ -207,7 +207,41 @@ non-zero exit and no result line:
    dist_selection equal but at pairs whose two losses tie within
    SEARCH_TIE; output_greedy_selection (one sweep) no worse than the
    all-base selection and within SEARCH_RTOL of the CPU's loss; its
-   seconds.
+   seconds;
+31. mnasnet serving: ImageNet MNASNet (scale 2.0) W2A4 at full width,
+   numpy-drawn (host_params), MSE scales, calibration on 16 images, in
+   two states: plain, and harmonized (quantize.harmonize_residual_chains,
+   its chains' sums on int8 __sum__ sites); each plan under
+   SSQ_DW_KERNEL=1 SSQ_PACKED=1 must hold the JAX package's kinds for the
+   recipe (MNASNET_KINDS, mnasnet_parity_gap.py on the CPU); one deploy
+   forward at batch 256 with the counters reset just before it
+   (MNASNET_LAUNCHES: dw_conv3x3_int8, dw_conv_int8, packed, and in the
+   plain state int8_conv once per pair term), its pair_stats
+   (MNASNET_PAIRS: pairs formed and consumed by int8_conv), the requants
+   left (UNFUSED), its ms/batch and host issue time beside the port's
+   bf16 float forward; sim (TF32 off) against deploy, no NaN, rel-MSE
+   <= 1e-2, beside the JAX package's own gap (JAX_GAP); card vs CPU
+   deploy on 8 grid images, rel-MSE <= 1e-8, same top-1; then the plain
+   state with SSQ_PAIR_TERMS=0: no pair formed, no int8_conv launch,
+   deploy vs sim within the gate;
+32. dw_conv_int8 kernel: the integer depthwise kernel against its plain
+   version at every depthwise shape it serves in phase 31 and at
+   MobileNetV2's features.1.conv.0, with a centered 4-bit feed and a
+   biased 8-bit one, one weight group (int32 sums) and two (the
+   scale-table sum): torch.equal in sums mode and in every requant
+   variant of REQUANT_VARIANTS (each also against the sums launch
+   followed by quantize_out); timed by CUDA-graph replay in the path's
+   mode (eager beside) next to its bound, the plain version (the shifted
+   int32 multiply-adds it replaces, requant elementwise) and cuDNN's bf16
+   depthwise conv on the same codes;
+33. mnasnet cli: the port's CLI on the trained MNASNet (CIFAR variant,
+   synth10), MNASNET_CLI_COMMON (brecq W2A4) without and with
+   --harmonize_residual, each in its own process under
+   MNASNET_CLI_TIMEOUT_S, each final state served under SSQ_DW_KERNEL=1
+   SSQ_PACKED=1 on the 2048 test images; gates: FP top-1 equals the port
+   CLI's on the CPU (MNASNET_CPU_FP_TOP1), all 52 targets done, final
+   (sim) top-1 at least FP - REGNET_FINAL_DROP, deploy within 0.5 points
+   of it; the sum sites beside the JAX record's.
 
 It imports nothing of JAX. Standard output ends with a JSON line of
 details, a JSON line of the kernels, the nvidia-smi line, the total
@@ -232,11 +266,14 @@ MNV2_KINDS = {"dw_int8": 16, "packed": 34, "bf16_codes": 1, "float_1p": 1,
               "float": 1}
 # requants each path's deploy forward leaves to PyTorch elementwise ops
 # (deploy.quantize_out.unfused): ResNet-18's go in the int8_conv and
-# packed epilogues; MobileNetV2's float_1p stem and the bf16_codes
-# depthwise unit fed by it have no requant epilogue
+# packed epilogues; MobileNetV2's float_1p stem has no requant epilogue
+# (the bf16_codes depthwise unit it feeds runs dw_conv_int8's); MNASNet's
+# float_1p stem and, in the plain state, its 10 float units fed by a pair
+# or an f32 sum (the consumer's requant after its int8_conv terms)
 UNFUSED = {"resnet18": 0, "resnet18_shifted": 0, "resnet18_reconstructed": 0,
-           "mobilenetv2": 2, "regnetx_600m_uniform": 1,
-           "regnetx_600m_baked": 1, "resnet18_w4a8": 0}
+           "mobilenetv2": 1, "regnetx_600m_uniform": 1,
+           "regnetx_600m_baked": 1, "resnet18_w4a8": 0, "mnasnet_plain": 11,
+           "mnasnet_harmonized": 1}
 SHIFT_TARGETS = (0.5, 1.0)       # the method path's candidate set
 RECON_IMAGES = 256               # calibration set of the reconstruction
 RECON_ITERS = 200                # optimizer steps per target (CLI: 20000)
@@ -270,7 +307,11 @@ JAX_GAP = {"regnetx_600m_uniform": 5.657550433364477e-04,
            "regnetx_600m_baked": 5.703625017323605e-04,
            # its plan under its defaults (a float_1p stem where the card
            # runs the stem kernel): the 13 int8_pair units are the same
-           "resnet18_w4a8": 6.907369906493377e-06}
+           "resnet18_w4a8": 6.907369906493377e-06,
+           # mnasnet_parity_gap.py --images 32, under the JAX package's
+           # defaults (its packed kernel clips a __sum__ site's codes)
+           "mnasnet_plain": 2.390080396739268e-03,
+           "mnasnet_harmonized": 3.05720950312419e-03}
 # ResNet-18 ImageNet W4A8 under phase 4's switches (phase 26): the 8-bit
 # unsigned feeds of the 13 wide units are int8_pair
 R18_W4A8_KINDS = {"stem_fused": 1, "int8_pair": 13, "bf16_codes": 6,
@@ -1408,12 +1449,12 @@ def margin_reading(torch, sim, dep):
 def kernel_counters():
     """Every kernel wrapper of the port that counts its launches."""
     from shiftedscalequantization_tpu_torch.ops.cuda import depthwise, \
-        fake_quant, group_conv, int_matmul, mbconv, packed, stem
+        dw_conv, fake_quant, group_conv, int_matmul, mbconv, packed, stem
     return (stem.stem_fused, packed.packed_quant_matmul, int_matmul.int8_conv,
             int_matmul.quant_matmul, depthwise.dw_conv3x3_int8,
             mbconv.mbconv_fused, fake_quant.fake_quant_2d,
             fake_quant.fake_quant_act, fake_quant.fake_quant_weight,
-            group_conv.int8_group_conv)
+            group_conv.int8_group_conv, dw_conv.dw_conv_int8)
 
 
 def reset_counts():
@@ -2147,6 +2188,7 @@ def serve_state(torch, deploy, Q, forward, Flags, name, setup, x, launches,
                                    device=DEVICE)
     torch.cuda.synchronize()
     got = counts()
+    pairs = dict(deploy.pair_stats)
     unfused = got.pop("unfused")
     print(f"  {name}: launches in one deploy forward "
           f"{ {k: v for k, v in got.items() if v} }; requants left to "
@@ -2190,7 +2232,8 @@ def serve_state(torch, deploy, Q, forward, Flags, name, setup, x, launches,
         raise AssertionError(f"{name}: card vs CPU deploy rel-MSE {c_rel}, "
                              f"same top-1 {same}")
     return dict(plan=plan, launches={k: v for k, v in got.items() if v},
-                unfused=unfused, deploy_ms=dep_ms, rel_mse=rel,
+                pair_stats=pairs, unfused=unfused, deploy_ms=dep_ms,
+                rel_mse=rel,
                 top1_agreement=agree, card_cpu_rel_mse=c_rel,
                 jax_gap=jgap)
 
@@ -2936,6 +2979,390 @@ def search_phase(torch, state):
     return out
 
 
+# ---------------------------------------------------------------------------
+# MNASNet, pair transport, the integer depthwise kernel (phases 31-33)
+# ---------------------------------------------------------------------------
+
+# phase 31: ImageNet MNASNet (scale 2.0) W2A4 under SSQ_DW_KERNEL=1
+# SSQ_PACKED=1, numpy-drawn (host_params), MSE scales, in two states:
+# plain (pair transport across the siteless residual chains) and
+# harmonized (quantize.harmonize_residual_chains: int8 __sum__ sites). The
+# JAX package's plan kinds and pair counts on the CPU for the same recipe
+# (mnasnet_parity_gap.py), and the launches of one deploy forward: the
+# 3x3 int8-fed units on dw_conv3x3_int8, the other depthwise units on
+# dw_conv_int8, the 1x1 units with int8 feeds packed, and each pair-fed
+# consumer one int8_conv per term
+MNASNET_STATES = ("plain", "harmonized")
+MNASNET_KINDS = {
+    "plain": {"bf16_codes": 11, "dw_int8": 6, "float": 11, "float_1p": 1,
+              "packed": 24},
+    "harmonized": {"bf16_codes": 11, "dw_int8": 6, "float": 1,
+                   "float_1p": 1, "packed": 34}}
+MNASNET_PAIRS = {"plain": {"formed": 5, "consumed_fast": 5},
+                 "harmonized": {"formed": 0, "consumed_fast": 0}}
+MNASNET_LAUNCHES = {
+    "plain": dict(dw_conv3x3_int8=6, dw_conv_int8=11, packed_quant_matmul=24,
+                  int8_conv=10, stem_fused=0, int8_group_conv=0),
+    "harmonized": dict(dw_conv3x3_int8=6, dw_conv_int8=11,
+                       packed_quant_matmul=34, int8_conv=0, stem_fused=0,
+                       int8_group_conv=0)}
+# phase 32: MobileNetV2's features.1.conv.0 (fed by the biased 8-bit stem
+# site) is the one depthwise unit of its serving path on dw_conv_int8:
+# (H, W, C, K, stride, offset)
+MNV2_DW_INT8_SHAPE = (112, 112, 32, 3, 1, 128)
+# phase 33: the port's CLI on the trained MNASNet (CIFAR variant) on
+# synth10, brecq W2A4, with and without --harmonize_residual, each in a
+# process of its own under MNASNET_CLI_TIMEOUT_S (each about 115 s on the
+# card, so the two stay near the phase's 240 s); 52 per-unit targets at
+# 400 weight steps, no act-delta phase and no per-target validation (on
+# the card at 100 / 50 steps the plain run ended at 13.1 top-1; at
+# 200 / 100 at 72.0, 300 / 0 at 95.1, 600 / 0 at 99.8).
+# The JAX package's record on the same weights
+# (round4_logs/harm_accuracy.json, brecq W2A4 at 600 / 300 steps, its own
+# synth10 draws): plain final 99.71, sim 99.66, deploy 99.61, 0 sum
+# sites; harmonized 99.61 / 99.66 / 99.71 with 10 sum sites
+MNASNET_CLI_COMMON = ["--arch", "mnasnet", "--dataset", "synth10",
+                      "--pretrained", "trained_mnasnet_synth10.npz",
+                      "--mode", "brecq", "--n_bits_w", "2", "--n_bits_a",
+                      "4", "--num_samples", "256", "--batch_size", "64",
+                      "--iters_w", "400", "--iters_a", "0",
+                      "--skip_test", "true"]
+MNASNET_CLI_TIMEOUT_S = 130
+# FP top-1 of the port's CLI on the CPU (--platform cpu, the same data
+# flags; its "accuracy of FP model" line): 2048 synth10 test images
+MNASNET_CPU_FP_TOP1 = 100.0
+JAX_MNASNET_SUM_SITES = 10
+
+
+def mnasnet_dw_shapes(graph, plan):
+    """{(H, W, C, K, stride, offset): count} of the depthwise units a plan
+    sends through dw_conv_int8 (offset 128 where the feed is a biased
+    site)."""
+    from shiftedscalequantization_tpu_torch import deploy
+    from shiftedscalequantization_tpu_torch.graph import iter_units
+    hw = deploy._unit_in_hw(graph, (HW, HW))
+    out = {}
+    for u in iter_units(graph):
+        kind, site = plan[u.name]
+        if u.groups == u.in_ch > 1 and kind in ("bf16_codes", "int8"):
+            key = (*hw[u.name], u.in_ch, u.kernel[0], u.stride[0],
+                   128 if site in plan["__biased_sites__"] else 0)
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def check_dw_conv(torch, gen, dwc, requant, deploy, shapes):
+    """dw_conv_int8 vs its plain version at each (H, W, C, K, stride,
+    offset) of the paths at batch 256 ({shape: {path: count}}), with a
+    4-bit centered feed (offset 0) and a biased 8-bit one (offset 128):
+    torch.equal in sums mode (int32 uniform, the f32 scale-table sum of
+    two weight groups) and in every requant variant of REQUANT_VARIANTS
+    (each also against the sums launch followed by quantize_out). Timed
+    by CUDA-graph replay in the path's mode (S = 1, the shape's offset, a
+    relu requant onto a 4-bit site; eager beside), next to its bound (the
+    bytes it reads and writes once), the plain version (the shifted int32
+    multiply-adds it replaces, the requant elementwise) and cuDNN's bf16
+    depthwise conv on the same codes (the conv alone)."""
+    import torch.nn.functional as F
+    ctx = requant_context(torch, deploy, DEVICE)
+    delta = torch.tensor(0.37, device=DEVICE)
+    rows = []
+    for key, paths in sorted(shapes.items(), reverse=True):
+        h, w, c, k, st, path_off = key
+        geom = ((k, k), (st, st), (k // 2, k // 2))
+        ho, wo = (h - 1) // st + 1, (w - 1) // st + 1
+        w1 = torch.randint(-2, 3, (1, c, k * k), generator=gen,
+                           device=DEVICE, dtype=torch.int8)
+        sel = torch.randint(0, 2, (c, 1), generator=gen, device=DEVICE)
+        w2 = torch.stack([torch.where(sel == s, w1[0], 0)
+                          for s in range(2)]).to(torch.int8).contiguous()
+        res = residuals(torch, gen, (BATCH, ho, wo, c), DEVICE)
+        label = f"dw_conv_int8 {h}x{w}x{c} k{k}/s{st}"
+        timed = {}
+        for offset in (0, 128):
+            lo = -128 if offset else -8
+            x = torch.randint(lo, -lo, (BATCH, h, w, c), generator=gen,
+                              device=DEVICE, dtype=torch.int8)
+            spread = (209.0 if offset else 6.6) * k
+            scale, bias = _scaled(torch, gen, c, DEVICE, spread)
+            for s_n, wm in ((1, w1), (2, w2)):
+                table = None if s_n == 1 else torch.stack(
+                    [scale * 0.5, scale]) / delta
+                off = offset * wm.sum(dim=2, dtype=torch.int32) \
+                    if offset else None
+                kw = dict(pad_value=-offset, group_scales=table,
+                          act_delta=delta, acc_offset=off)
+                got = dwc.dw_conv_int8(x, wm, *geom, **kw)
+                want = dwc.dw_conv_int8_plain(x, wm, *geom, **kw)
+                torch.cuda.synchronize()
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    raise AssertionError(f"{label} S={s_n} offset {offset}: "
+                                         "sums differ from the plain version")
+                pend = deploy._Pending(got.float(), scale, bias) \
+                    if s_n == 1 else deploy._Pending(got, None, bias)
+                rqs = check_requant_modes(
+                    torch, deploy, requant,
+                    f"{label} S={s_n} offset {offset}",
+                    lambda rq: dwc.dw_conv_int8(x, wm, *geom, requant=rq,
+                                                **kw),
+                    want.float(), pend, res, ctx)
+                if s_n == 1 and offset == path_off:
+                    rq = rqs[ROLE_VARIANT["site"]]
+                    timed = dict(x=x, kw=kw, rq=rq)
+        x, kw, rq = timed["x"], timed["kw"], timed["rq"]
+        fn = lambda: dwc.dw_conv_int8(x, w1, *geom, requant=rq,  # noqa
+                                      **kw)
+        ms = time_graph(fn)
+        eager_ms = time_cuda(fn)
+        sums_ms = time_graph(lambda: dwc.dw_conv_int8(x, w1, *geom, **kw))
+        plain_ms = time_cuda(lambda: dwc.dw_conv_int8_plain(
+            x, w1, *geom, requant=rq, **kw), iters=3, warmup=1)
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)       # channels_last
+        wb = w1[0].reshape(c, 1, k, k).to(torch.bfloat16) \
+            .contiguous(memory_format=torch.channels_last)
+        conv_ms = time_graph(lambda: F.conv2d(xb, wb, None, st, k // 2, 1,
+                                              c))
+        n_bytes = BATCH * (h * w + ho * wo) * c + k * k * c + 4 * 4 * c
+        b_ms, b_by = bound_ms(n_bytes, 2 * k * k * BATCH * ho * wo * c,
+                              INT8_OPS)
+        print(f"  {label} offset {path_off} ({paths}): {ms:.4f} ms graph, "
+              f"{eager_ms:.4f} eager, sums {sums_ms:.4f} (bound {b_ms:.4f} "
+              f"ms by {b_by}; plain {plain_ms:.4f}; cuDNN bf16 conv alone "
+              f"{conv_ms:.4f}); sums and {len(REQUANT_VARIANTS)} requant "
+              "variants bit-exact at S = 1, 2 and offsets 0, 128",
+              flush=True)
+        rows.append(dict(shape=key, paths=paths, ms=ms, eager_ms=eager_ms,
+                         sums_ms=sums_ms, plain_ms=plain_ms,
+                         library_ms=conv_ms, bound_ms=b_ms, bound_by=b_by,
+                         err=0.0))
+    return rows
+
+
+def mnasnet_phases(torch, gen, mnv2_dw_count):
+    """Phases 31-32: ImageNet MNASNet W2A4 at full width, plain and
+    harmonized, served under SSQ_DW_KERNEL=1 SSQ_PACKED=1 (plan kinds,
+    launches, pairs, requants left, deploy vs sim, card vs CPU, ms/batch
+    and host issue time beside the bf16 forward, and the plain state
+    once more with SSQ_PAIR_TERMS=0); then dw_conv_int8 at every
+    depthwise shape it serves there and at MobileNetV2's
+    features.1.conv.0 (``mnv2_dw_count`` units)."""
+    from shiftedscalequantization_tpu_torch import deploy
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.graph import Flags, forward
+    from shiftedscalequantization_tpu_torch.ops.cuda import dw_conv, requant
+    t0 = time.perf_counter()
+    serving_env(SSQ_DW_KERNEL="1", SSQ_PACKED="1")
+    setup = serving_setup(torch, gen, "mnasnet", host=True)
+    graph, cfg, params, qstate, dparams, steps = setup
+    qs_h, ratios = Q.harmonize_residual_chains(graph, qstate)
+    setups = {"plain": setup,
+              "harmonized": (graph, cfg, params, qs_h, dparams,
+                             deploy.act_steps_from_qstate(graph, qs_h))}
+    plans = {}
+    for state in MNASNET_STATES:
+        plans[state] = deploy.make_deploy_plan(
+            graph, dparams, setups[state][5], input_hw=(HW, HW))
+        got = plan_counts(plans[state])
+        print(f"  mnasnet {state}: plan kinds {got} (JAX "
+              f"{MNASNET_KINDS[state]}); sum sites "
+              f"{len(plans[state]['__sum_steps__'])}"
+              + (f", {len(ratios)} act sites harmonized" if state ==
+                 "harmonized" else ""), flush=True)
+        if got != MNASNET_KINDS[state]:
+            raise AssertionError(f"mnasnet {state} plan kinds {got}, want "
+                                 f"{MNASNET_KINDS[state]}")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    phase("mnasnet setup", t0)
+
+    t0 = time.perf_counter()
+    x = host_images(torch, BATCH, 2)
+    served = {}
+    for state in MNASNET_STATES:
+        res = serve_state(torch, deploy, Q, forward, Flags,
+                          f"mnasnet {state}", setups[state], x,
+                          MNASNET_LAUNCHES[state], f"mnasnet_{state}")
+        pairs = res["pair_stats"]
+        print(f"  mnasnet {state}: pair_stats of one forward {pairs} (JAX "
+              f"{MNASNET_PAIRS[state]})", flush=True)
+        if pairs != MNASNET_PAIRS[state]:
+            raise AssertionError(f"mnasnet {state}: pair_stats {pairs}, "
+                                 f"want {MNASNET_PAIRS[state]}")
+        _, _, params_s, qs_s, dp_s, steps_s = setups[state]
+        plan = res["plan"]
+        fwd = lambda: deploy.deploy_forward(  # noqa: E731
+            graph, dp_s, steps_s, x, plan=plan, device=DEVICE)
+        issue = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fwd()
+            issue.append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+        res["host_issue_ms"] = min(issue[1:]) * 1e3
+        params_bf16 = {u: {k: v.to(torch.bfloat16) for k, v in p.items()}
+                       for u, p in params_s.items()}
+        xb = x.to(torch.bfloat16)
+        res["bf16_ms"] = time_cuda(lambda: forward(
+            graph, params_bf16, qs_s, xb, Flags(), device=DEVICE),
+            iters=5, warmup=1)
+        res["plan"] = plan_counts(plan)
+        print(f"  mnasnet {state}: {res['deploy_ms']:.3f} ms/batch, host "
+              f"issue {res['host_issue_ms']:.3f} ms; the port's bf16 float "
+              f"forward {res['bf16_ms']:.3f} ms/batch", flush=True)
+        served[state] = res
+    # the plain state with pair transport off: the exact f32 sums
+    os.environ["SSQ_PAIR_TERMS"] = "0"
+    graph, cfg, params, qstate, dparams, steps = setups["plain"]
+    reset_counts()
+    logits0 = deploy.deploy_forward(graph, dparams, steps, x,
+                                    plan=plans["plain"], device=DEVICE)
+    torch.cuda.synchronize()
+    off = dict(pairs=dict(deploy.pair_stats),
+               launches={k: v for k, v in counts().items() if v})
+    del os.environ["SSQ_PAIR_TERMS"]
+    sim = forward(graph, params, qstate, x, Q.act_flags(
+        graph, cfg, base=Flags().all_weights(graph)), device=DEVICE)
+    off["rel_mse"] = logit_rel_mse(torch, logits0, sim)
+    off["finite"] = bool(torch.isfinite(logits0).all())
+    print(f"  mnasnet plain, SSQ_PAIR_TERMS=0: pair_stats {off['pairs']}, "
+          f"launches {off['launches']}; deploy vs sim logit rel-MSE "
+          f"{off['rel_mse']:.4e} (gate {RELMSE_GATE:g})", flush=True)
+    if off["pairs"]["formed"] != 0 or off["launches"].get("int8_conv", 0) \
+            or not (off["finite"] and off["rel_mse"] <= RELMSE_GATE):
+        raise AssertionError(f"mnasnet SSQ_PAIR_TERMS=0: {off}")
+    serving_env()
+    phase("mnasnet serving + parity", t0)
+
+    t0 = time.perf_counter()
+    shapes = {}
+    for key, n in mnasnet_dw_shapes(graph, plans["plain"]).items():
+        shapes.setdefault(key, {})["mnasnet"] = n
+    shapes.setdefault(MNV2_DW_INT8_SHAPE, {})["mobilenetv2"] = mnv2_dw_count
+    if sum(r.get("mnasnet", 0) for r in shapes.values()) != 11:
+        raise AssertionError(f"mnasnet dw_conv_int8 shapes {shapes}")
+    dw_rows = check_dw_conv(torch, gen, dw_conv, requant, deploy, shapes)
+    phase("dw_conv_int8 kernel", t0)
+    return dict(setup_s=setup_s, served=served, pair_terms_0=off,
+                harmonized_sites=len(ratios), dw_rows=dw_rows)
+
+
+def mnasnet_cli_phases(torch):
+    """Phase 33: the port's CLI on the trained MNASNet, brecq W2A4, with
+    and without --harmonize_residual, each in its own process under
+    MNASNET_CLI_TIMEOUT_S; then each run's final state served on
+    synth10's 2048 test images. Gates: the FP model's top-1 on them
+    equals the port CLI's on the CPU, the final (sim) top-1 at least FP -
+    REGNET_FINAL_DROP (a reconstruction that collapses fails), deploy
+    within 0.5 points of the sim top-1 of the same state."""
+    import tempfile
+    import numpy as np
+    from shiftedscalequantization_tpu_torch import cli, deploy
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.graph import Flags, forward
+    from shiftedscalequantization_tpu_torch.utils import checkpoint as ck
+    from shiftedscalequantization_tpu_torch.utils.config import load_args
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory()
+    env = dict(os.environ, PYTHONPATH=root)
+    for k in ("SSQ_STEM_KERNEL", "SSQ_PACKED", "SSQ_STEM_1PASS",
+              "SSQ_DW_KERNEL", "SSQ_PAIR_TERMS"):
+        env.pop(k, None)
+    common = [os.path.join(root, a) if a.endswith(".npz") else a
+              for a in MNASNET_CLI_COMMON]
+    runs = {}
+    for harm in ("false", "true"):
+        name = "harmonized" if harm == "true" else "plain"
+        argv = common + [
+            "--harmonize_residual", harm,
+            "--checkpoint_dir", os.path.join(tmp.name, name),
+            "--log_path", os.path.join(tmp.name, f"{name}.log")]
+        print(f"  mnasnet cli {name}: python -m "
+              f"shiftedscalequantization_tpu_torch.cli {' '.join(argv)}",
+              flush=True)
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "shiftedscalequantization_tpu_torch.cli",
+             *argv], cwd=root, env=env, capture_output=True, text=True,
+            timeout=MNASNET_CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"mnasnet cli {name}: exit "
+                                 f"{proc.returncode}\n{proc.stdout[-4000:]}"
+                                 f"\n{proc.stderr[-4000:]}")
+        final, harmonized = None, None
+        for line in proc.stdout.splitlines():
+            if line.startswith("Final W"):
+                final = _cli_dict(line)["top1"]
+            elif line.startswith("harmonized "):
+                harmonized = line
+        args = load_args(argv)
+        graph, raw, cfg = cli.build_everything(args, device=DEVICE)
+        params, _ = Q.prepare_model(graph, raw, cfg, device=DEVICE)
+        qs, done = ck.load_qstate(os.path.join(tmp.name, name, "QNN_W2_A4"),
+                                  device=DEVICE)
+        _, test = cli.build_data(args)
+        batches = list(test)
+        xs = np.concatenate([b for b, _ in batches])
+        ys = np.concatenate([y for _, y in batches])
+        x = torch.as_tensor(xs, device=DEVICE)
+        serving_env(SSQ_DW_KERNEL="1", SSQ_PACKED="1")
+        dp = deploy.build_deploy_params(graph, params, qs, device=DEVICE)
+        steps = deploy.act_steps_from_qstate(graph, qs)
+        plan = deploy.make_deploy_plan(graph, dp, steps,
+                                       input_hw=tuple(xs.shape[1:3]))
+        reset_counts()
+        logits = torch.cat([deploy.deploy_forward(
+            graph, dp, steps, x[i:i + BATCH], plan=plan, device=DEVICE)
+            for i in range(0, x.shape[0], BATCH)])
+        torch.cuda.synchronize()
+        serving_env()
+        launches = {k: v for k, v in counts().items() if v}
+        launches["unfused"] = launches.pop("unfused", 0)
+        y = torch.as_tensor(ys, device=DEVICE)
+        dep_top1 = float((logits.argmax(-1) == y).double().mean()) * 100
+        # the FP model's top-1 on the same images (--skip_test leaves it
+        # out of the CLI's lines)
+        fp_logits = torch.cat([forward(graph, params, qs, x[i:i + BATCH],
+                                       Flags(), device=DEVICE)
+                               for i in range(0, x.shape[0], BATCH)])
+        fp = float((fp_logits.argmax(-1) == y).double().mean()) * 100
+        sums = len(plan["__sum_steps__"])
+        runs[name] = dict(wall_s=wall, fp_top1=fp, final_top1=final,
+                          deploy_top1=dep_top1, targets=len(done),
+                          images=int(x.shape[0]), sum_sites=sums,
+                          harmonized=harmonized,
+                          plan_kinds=plan_counts(plan),
+                          deploy_launches=launches)
+        print(f"  mnasnet cli {name}: {wall:.2f} s; {len(done)} targets; FP "
+              f"top-1 {fp} (the port's CLI on the CPU "
+              f"{MNASNET_CPU_FP_TOP1}); final {final}; deploy "
+              f"{dep_top1:.4f} on {x.shape[0]} images under SSQ_DW_KERNEL=1 "
+              f"SSQ_PACKED=1 (plan {plan_counts(plan)}, launches "
+              f"{launches}); sum sites {sums} (the JAX record's harmonized "
+              f"run: {JAX_MNASNET_SUM_SITES}); {harmonized or ''}; "
+              "round4_logs/harm_accuracy.json (JAX, brecq, 600 / 300 "
+              "steps): plain final 99.71, deploy 99.61; harmonized 99.61 / "
+              "99.71", flush=True)
+        if fp != MNASNET_CPU_FP_TOP1:
+            raise AssertionError(f"mnasnet cli {name}: FP top-1 {fp}, on "
+                                 f"the CPU {MNASNET_CPU_FP_TOP1}")
+        if final is None or len(done) != len(
+                Q.reconstruction_targets(graph)):
+            raise AssertionError(f"mnasnet cli {name}: final {final}, "
+                                 f"{len(done)} targets done")
+        if final < fp - REGNET_FINAL_DROP:
+            raise AssertionError(f"mnasnet cli {name}: final top-1 {final}"
+                                 f" < FP {fp} - {REGNET_FINAL_DROP}")
+        if abs(dep_top1 - final) > REGNET_DEPLOY_GAP:
+            raise AssertionError(f"mnasnet cli {name}: deploy top-1 "
+                                 f"{dep_top1} vs sim {final}")
+    tmp.cleanup()
+    phase("mnasnet cli", t0)
+    return runs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3091,7 +3518,7 @@ def main():
     print(f"  launches in one deploy forward: {mlaunches}; requants left "
           f"to PyTorch elementwise: {unfused['mobilenetv2']}", flush=True)
     check_counts(mlaunches, dw_conv3x3_int8=16, packed_quant_matmul=34,
-                 stem_fused=0, mbconv_fused=0, int8_conv=0)
+                 stem_fused=0, mbconv_fused=0, int8_conv=0, dw_conv_int8=1)
     check_unfused(unfused["mobilenetv2"], "mobilenetv2")
     if tuple(mlogits.shape) != (BATCH, 1000) \
             or not bool(torch.isfinite(mlogits).all()):
@@ -3255,6 +3682,12 @@ def main():
     method_cli = cli_method_phases(torch, sdeploy_ms)
     search = search_phase(torch, fisher_state)
     del fisher_state
+
+    # ---- MNASNet: pair transport, dw_conv_int8, the trained CLI --------
+    mn = mnasnet_phases(torch, gen, mlaunches["dw_conv_int8"])
+    mn_cli = mnasnet_cli_phases(torch)
+    unfused.update({f"mnasnet_{s}": r["unfused"]
+                    for s, r in mn["served"].items()})
     unfused.update({f"regnetx_600m_{s}": r["unfused"]
                     for s, r in rg["served"].items()})
     unfused["resnet18_w4a8"] = pair["unfused"]
@@ -3277,6 +3710,10 @@ def main():
 
     def per_path(rows, key, roles="roles"):
         return sum(r[key] * c for r in rows for c in r[roles].values())
+
+    def per_dw(rows, key, path=None):
+        return sum(r[key] * c for r in rows for p, c in r["paths"].items()
+                   if path in (None, p))
 
     rg_served, g_rows = rg["served"], rg["group_rows"]
     kernels = [
@@ -3394,7 +3831,9 @@ def main():
          + mlaunches["int8_conv"] + sum(
              r["launches"].get("int8_conv", 0) for r in rg_served.values())
          + pair["launches"]["int8_conv"]
-         + method_cli["launches"].get("int8_conv", 0),
+         + method_cli["launches"].get("int8_conv", 0)
+         + sum(r["launches"].get("int8_conv", 0)
+               for r in mn["served"].values()),
          "launches_by_path": {
              "resnet18_shifted": slaunches["int8_conv"],
              "resnet18": launches["int8_conv"],
@@ -3403,7 +3842,9 @@ def main():
                 for s, r in rg_served.items()},
              "resnet18_w4a8": pair["launches"]["int8_conv"],
              "resnet18_act_shift": method_cli["launches"].get("int8_conv",
-                                                              0)},
+                                                              0),
+             **{f"mnasnet_{s}": r["launches"].get("int8_conv", 0)
+                for s, r in mn["served"].items()}},
          "max_abs_err": max(r["err"] for r in conv_rows),
          "ms": path_time(conv_rows),
          "ms_sums_mode": sums_mode(conv_rows),
@@ -3445,6 +3886,30 @@ def main():
          "library_ms": per_path(g_rows, "library_ms"),
          "library_uniform_s1_ms": per_path(g_rows, "library_s1_ms",
                                            "uniform_roles")},
+        # dw_conv_int8: one plain-state MNASNet forward (11 depthwise
+        # units, the relu requant onto their sites in the epilogue) and
+        # MobileNetV2's features.1.conv.0 (offset 128); its library
+        # yardstick is cuDNN's bf16 depthwise conv on the same codes, the
+        # conv alone
+        {"name": "dw_conv_int8", "route": "cuda",
+         "source": src + "dw_conv_int8.cu",
+         "replaces": "shiftedscalequantization_tpu/deploy.py:942 (the "
+                     "bf16_codes depthwise conv, feature_group_count = C, "
+                     "left to XLA)",
+         "launches": mn["served"]["plain"]["launches"].get("dw_conv_int8", 0)
+         + mlaunches["dw_conv_int8"],
+         "launches_by_path": {
+             **{f"mnasnet_{s}": r["launches"].get("dw_conv_int8", 0)
+                for s, r in mn["served"].items()},
+             "mobilenetv2": mlaunches["dw_conv_int8"]},
+         "max_abs_err": max(r["err"] for r in mn["dw_rows"]),
+         **{k: per_dw(mn["dw_rows"], k) for k in (
+             "ms", "eager_ms", "sums_ms", "plain_ms", "bound_ms",
+             "library_ms")},
+         "ms_by_path": {p: per_dw(mn["dw_rows"], "ms", p)
+                        for p in ("mnasnet", "mobilenetv2")},
+         "bound_by": max(mn["dw_rows"],
+                         key=lambda r: r["bound_ms"])["bound_by"]},
     ]
     print(json.dumps({"packed_shapes": packed_rows, "stem": stem_rows,
                       "requants_left_to_pytorch": unfused,
@@ -3497,7 +3962,11 @@ def main():
                       "regnet_cli": rg_cli,
                       "fisher": fisher,
                       "cli_fisher_act_shift": method_cli,
-                      "search": search}),
+                      "search": search,
+                      "mnasnet": {k: v for k, v in mn.items()
+                                  if k != "dw_rows"},
+                      "mnasnet_dw_conv_shapes": mn["dw_rows"],
+                      "mnasnet_cli": mn_cli}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -23,30 +23,46 @@ integer kinds give the same integers (the JAX bf16 sums are exact below
 unit goes through ``ops/cuda/int_matmul.int8_conv`` (the implicit-GEMM
 kernel on the card, its plain version on the CPU), a grouped conv through
 ``ops/cuda/group_conv.int8_group_conv`` (likewise), a depthwise conv
-through nine shifted int32 multiply-adds. ``int8_bd`` runs a narrow
-grouped conv on ``int8_conv`` with its dense block-diagonal operand
-(``DeployUnit.w_bd``); ``int8_pair`` (8-bit unsigned feeds) runs the
-biased codes with offset 128, which computes the JAX package's
+through ``ops/cuda/dw_conv.dw_conv_int8`` (likewise). ``int8_bd`` runs a
+narrow grouped conv on ``int8_conv`` with its dense block-diagonal
+operand (``DeployUnit.w_bd``); ``int8_pair`` (8-bit unsigned feeds) runs
+the biased codes with offset 128, which computes the JAX package's
 nibble-split sum ``16*hi + lo`` in one launch. No cuDNN float conv
 touches act codes, since TF32 and Winograd would flip them. An
-``int8_conv``, ``int8_group_conv`` or ``packed`` unit hands its launch to
-its consumer (``_Deferred``): the requant onto an int8 or biased site
-under none, relu or relu6 (and a residual block's requant, for its last
-unit) runs in the kernel's epilogue, with the terms ``quantize_out``
-builds; ``quantize_out.unfused`` counts the requants left to PyTorch
-elementwise ops. The plan still names the kinds the JAX package would
-pick for other graphs; ``float_s2d`` and pair transport raise
-NotImplementedError when reached. A hardened ``ActShiftQuant`` site has
-a per-channel step: it travels as an f32 edge and its consumers take the
-``float`` kind, as in the JAX package; an integer feed handed a
-per-channel step raises. A plan also keeps, under
-``__kernel_consts__``, the launch
+``int8_conv``, ``int8_group_conv``, ``dw_conv_int8`` or ``packed`` unit
+hands its launch to its consumer (``_Deferred``): the requant onto an
+int8 or biased site under none, relu or relu6 (and a residual block's
+requant, for its last unit) runs in the kernel's epilogue, with the
+terms ``quantize_out`` builds; ``quantize_out.unfused`` counts the
+requants left to PyTorch elementwise ops. The plan still names the kinds
+the JAX package would pick for other graphs; ``float_s2d`` raises
+NotImplementedError when reached.
+
+Pair transport (MNASNet's siteless residual chains): a siteless residual
+block of two code grids hands on ``("pair", terms, None)``, its terms
+``("codes", int8, site)`` values, while the chain stays below the term cap;
+a ``float`` consumer with integer weights (not baked) runs one
+``int8_conv`` per term and sums ``float(sums_i) * delta_i``; other
+consumers and deeper chains take the exact f32 sum of the terms.
+``pair_stats`` counts the pairs formed and consumed so in the last
+forward.
+
+A hardened ``ActShiftQuant`` site has a per-channel step: it travels as
+an f32 edge and its consumers take the ``float`` kind, as in the JAX
+package; an integer feed handed a per-channel step raises. A plan also
+keeps, under ``__kernel_consts__``, the launch
 constants of its ``stem_fused`` and ``dw_int8`` units (weight layouts,
 folded scales, the grid's reciprocal), built once when the plan is made,
 so a forward launches those units' kernels and nothing else for them.
 
-Switches read, with the JAX package's meaning: ``SSQ_STEM_KERNEL``,
-``SSQ_PACKED``, ``SSQ_STEM_1PASS``, ``SSQ_DW_KERNEL``.
+Switches read, with the JAX package's meaning and defaults:
+``SSQ_STEM_KERNEL``, ``SSQ_PACKED``, ``SSQ_STEM_1PASS``, ``SSQ_DW_KERNEL``
+(the plan) and ``SSQ_PAIR_TERMS`` (the forward's term cap, 2; below 2 no
+pair forms). The JAX package's other plan switches keep their defaults
+here: units narrower than ``THIN_CHANNELS`` take ``bf16_codes`` (the same
+integers as ``int8`` in the port), and ``float`` units keep the exact
+route. Pair transport is always on, as the JAX package has it off the
+TPU.
 """
 from __future__ import annotations
 
@@ -63,6 +79,7 @@ from .graph import BlockSpec, Graph, OpSpec, UnitQuant, UnitSpec, \
 from .ops import wquant as W
 from .ops.act_quant import ActShiftQuant
 from .ops.cuda.depthwise import dw_conv3x3_int8_prepared, prepare_dw
+from .ops.cuda.dw_conv import dw_conv_int8
 from .ops.cuda.group_conv import int8_group_conv
 from .ops.cuda.int_matmul import int8_conv
 from .ops.cuda.packed import pack_codes, packed_quant_matmul
@@ -73,6 +90,9 @@ UNPORTED_KINDS = ("float_s2d",)
 # units narrower than this take bf16_codes over int8 (the JAX package's
 # SSQ_THIN_CHANNELS default; the kinds give the same integers here)
 THIN_CHANNELS = 128
+# the pairs formed by siteless residual blocks and those consumed by one
+# int8_conv per term, in the last deploy_forward
+pair_stats = {"formed": 0, "consumed_fast": 0}
 
 
 @dataclasses.dataclass
@@ -551,51 +571,24 @@ def _finish_affine(acc, sc, b):
     return y if b is None else y + b
 
 
-def _dw_int_acc(spec: UnitSpec, w_int, xi, offset: int):
-    """Exact depthwise conv of int8 feed codes ``xi`` (centered value
-    ``xi + offset``): nine shifted int32 multiply-adds over the centered
-    codes, zero-padded."""
-    b, h, w, c = xi.shape
-    (kh, kw), (sh, sw), (ph, pw) = spec.kernel, spec.stride, spec.padding
-    ho = (h + 2 * ph - kh) // sh + 1
-    wo = (w + 2 * pw - kw) // sw + 1
-    xp = xi.new_zeros((b, h + 2 * ph, w + 2 * pw, c), dtype=torch.int32)
-    xp[:, ph:ph + h, pw:pw + w, :] = xi.to(torch.int32) + offset
-    wt = w_int.to(torch.int32).reshape(c, kh * kw)
-    acc = None
-    for i in range(kh):
-        for j in range(kw):
-            t = xp[:, i:i + sh * (ho - 1) + 1:sh,
-                   j:j + sw * (wo - 1) + 1:sw, :] * wt[:, i * kw + j]
-            acc = t if acc is None else acc + t
-    return acc
-
-
-def _int_unit(spec: UnitSpec, d: DeployUnit, xi, offset: int, delta,
-              block_diagonal: bool = False):
-    """Exact integer conv/linear of int8 feed codes ``xi`` whose centered
-    value is ``xi + offset``, with its epilogue pending: padding carries
+def _int_launch(spec: UnitSpec, d: DeployUnit, xi, offset: int, delta,
+                block_diagonal: bool = False):
+    """The launch of the exact integer conv/linear of int8 feed codes
+    ``xi`` whose centered value is ``xi + offset``: padding carries
     -offset (centered zero) and the offset's share comes back as offset *
-    sum(w). A baked unit sums its groups through the scale table. Dense
-    and grouped units return the int8_conv / int8_group_conv launch
-    deferred to their consumer; ``block_diagonal`` runs a grouped unit
-    dense on its block-diagonal operand (int8_bd)."""
-    if spec.kind == "conv" and spec.groups == spec.in_ch == spec.out_ch \
-            and spec.groups > 1:
-        if d.w_groups is None:
-            acc = _dw_int_acc(spec, d.w_int, xi, offset)
-            return _Pending(acc.to(torch.float32), d.scale * delta, d.bias)
-        out = 0.0
-        for s in range(d.w_groups.shape[0]):
-            acc = _dw_int_acc(spec, d.w_groups[s], xi, offset)
-            out = out + acc.to(torch.float32) * (d.group_scales[s] * delta)
-        return _Pending(out, None, d.bias)
+    sum(w). ``launch(None)`` gives the f32 sums (a baked unit's through
+    the scale table at ``delta``), ``launch(rq)`` the int8 codes of the
+    ``Requant`` rq. Dense units run int8_conv, depthwise ones
+    dw_conv_int8, grouped ones int8_group_conv; ``block_diagonal`` runs a
+    grouped unit dense on its block-diagonal operand (int8_bd)."""
     w_mat, conv, extra = d.w_mat, int8_conv, {}
     if spec.kind == "conv":
         geom = (spec.kernel, spec.stride, spec.padding)
         x4 = xi
         if block_diagonal:
             w_mat = d.w_bd
+        elif spec.groups == spec.in_ch == spec.out_ch > 1:
+            conv = dw_conv_int8
         elif spec.groups != 1:
             conv, extra = int8_group_conv, {"conv_groups": spec.groups}
     else:
@@ -614,8 +607,17 @@ def _int_unit(spec: UnitSpec, d: DeployUnit, xi, offset: int, delta,
             out = out.reshape(xi.shape[0], -1)
         return out
 
+    return launch
+
+
+def _int_unit(spec: UnitSpec, d: DeployUnit, xi, offset: int, delta,
+              block_diagonal: bool = False):
+    """``_int_launch``'s launch deferred to the unit's consumer, with the
+    unit's epilogue pending (a baked unit's sums come through the scale
+    table)."""
     scale = d.scale * delta if d.w_groups is None else None
-    return _Deferred(launch, scale, d.bias)
+    return _Deferred(_int_launch(spec, d, xi, offset, delta, block_diagonal),
+                     scale, d.bias)
 
 
 def _max_pool_codes(t, window, stride, padding):
@@ -646,6 +648,11 @@ class _Ctx:
         kind, t, site = v
         if kind == "f32":
             return t
+        if kind == "pair":      # the terms' sum, in order
+            acc = self.to_float(t[0])
+            for term in t[1:]:
+                acc = acc + self.to_float(term)
+            return acc
         delta = self.act_steps[site][0]
         if kind == "biased":
             return (t.to(torch.float32) + 128.0) * delta
@@ -685,8 +692,8 @@ class _Ctx:
         """(r, Mr, C): the residual's term r*Mr of the multiply-add, C with
         a biased residual's offset folded in."""
         kind_r, tr, site_r = residual
-        if kind_r == "f32":
-            return tr, inv, C
+        if kind_r in ("f32", "pair"):
+            return self.to_float(residual), inv, C
         Mr = self.act_steps[site_r][0] * inv
         return tr, Mr, (C + 128.0 * Mr if kind_r == "biased" else C)
 
@@ -816,13 +823,34 @@ def _block_requant(ctx: _Ctx, val: _Deferred, unit: UnitSpec,
     return (kind, val.launch(rq), node.name)
 
 
+def _traced_nodes(graph: Graph, trace: Optional[list], snap):
+    """The graph's nodes; with a ``trace`` list, (node name, float value
+    after the node) appended after each node has run."""
+    if trace is None:
+        yield from graph
+        return
+    for node in graph:
+        yield node
+        trace.append((node.name, snap()))
+
+
 def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
-                   plan: Optional[dict] = None, device="cuda"):
+                   plan: Optional[dict] = None, device="cuda",
+                   trace: Optional[list] = None):
     """Integer inference on NHWC input; returns the network output.
 
     ``act_steps`` from act_steps_from_qstate; ``plan`` from make_deploy_plan
     (computed here if omitted). Values between nodes are ('codes', int8,
-    site), ('biased', int8, site) or ('f32', tensor, None)."""
+    site), ('biased', int8, site), ('pair', terms, None) or ('f32',
+    tensor, None). With a ``trace`` list, (name, float value) is appended
+    after each unit of a block and after each node, as the JAX package
+    does: the first unit where two forwards part. The served route stays
+    the same; where a block's last unit writes the block site's codes,
+    the trace requantizes that unit once more for its own value, and that
+    extra launch or requant shows in the counts."""
+    pair_stats["formed"] = 0
+    pair_stats["consumed_fast"] = 0
+    pair_terms = int(os.environ.get("SSQ_PAIR_TERMS", "2"))
     dev = resolve_device(device)
     x = torch.as_tensor(x, device=dev)
     if plan is None:
@@ -864,6 +892,18 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
     def run_unit(spec: UnitSpec, v):
         d = dparams[spec.name]
         kind_plan, feed_site = plan[spec.name]
+        if v[0] == "pair" and kind_plan == "float" and d.w_int is not None \
+                and d.w_groups is None:
+            # a pair-fed consumer: the conv is linear, so conv(sum_i q_i *
+            # d_i) is sum_i float(conv_int(q_i)) * d_i, one exact int8_conv
+            # per term (a baked unit takes the f32 route below)
+            pair_stats["consumed_fast"] += 1
+            acc = None
+            for _, tc, site in v[1]:
+                term = _int_launch(spec, d, tc.contiguous(), 0, None)(None) \
+                    * act_steps[site][0]
+                acc = term if acc is None else acc + term
+            return _Pending(acc, d.scale, d.bias)
         if kind_plan == "stem_fused" and not stem_ok:
             kind_plan = "float"       # kernel needs square, 8-aligned input
         if kind_plan in UNPORTED_KINDS:
@@ -955,14 +995,21 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
         t = v
         for u in node.units[:-1]:
             t = quantize_out(ctx, run_unit(u, t), u.name, u.activation)
+            if trace is not None:
+                trace.append((u.name, to_float(t)))
         last = node.units[-1]
         val = run_unit(last, t)
         if isinstance(val, _Deferred):
             # the last unit's kernel writes the block site's codes
             fused = _block_requant(ctx, val, last, node, res_v)
             if fused is not None:
+                if trace is not None:
+                    trace.append((last.name, to_float(quantize_out(
+                        ctx, val, last.name, last.activation))))
                 return fused
         t = quantize_out(ctx, val, last.name, last.activation)
+        if trace is not None:
+            trace.append((last.name, to_float(t)))
         no_site = act_steps.get(node.name) is None
         sum_site = f"{node.name}__sum__"
         if (node.post_activation is None and no_site
@@ -972,19 +1019,25 @@ def deploy_forward(graph: Graph, dparams: dict, act_steps: dict, x,
             return ("codes", t[1] + res_v[1], sum_site)
         if res_v is None and node.post_activation is None and no_site:
             return t            # siteless pass-through keeps its codes
-        if (node.post_activation is None and no_site and t[0] == "codes"
-                and res_v[0] == "codes"):
-            raise NotImplementedError(
-                f"pair transport ({node.name}: siteless residual of code "
-                "grids) is not ported")
+        if (pair_terms >= 2 and node.post_activation is None and no_site
+                and t[0] == "codes" and res_v[0] in ("codes", "pair")
+                and (res_v[0] == "codes" or len(res_v[1]) < pair_terms)):
+            # siteless residual of code grids: the sum is deferred to the
+            # consumer; deeper chains than the cap take the exact f32 sum
+            # below
+            terms = (res_v,) if res_v[0] == "codes" else res_v[1]
+            pair_stats["formed"] += 1
+            return ("pair", (t,) + tuple(terms), None)
         return quantize_out(ctx, t, node.name, node.post_activation,
                             residual=res_v)
 
     v = ("f32", x, None)
     pooled_by_stem = False
     with torch.no_grad(), _fp32():
-        for node in graph:
+        for node in _traced_nodes(graph, trace, lambda: to_float(v)):
             if isinstance(node, OpSpec):
+                if v[0] == "pair":          # ops take a plain tensor
+                    v = ("f32", to_float(v), None)
                 kind, t, site = v
                 if node.op == "maxpool" and pooled_by_stem:
                     pooled_by_stem = False   # the stem kernel pooled

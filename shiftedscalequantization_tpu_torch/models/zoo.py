@@ -1,9 +1,9 @@
 """Model registry (PyTorch port of
-``shiftedscalequantization_tpu/models/zoo.py``): ResNet, MobileNetV2 and
-RegNetX. MNASNet is not ported yet (ROADMAP.md, queue 1, item 7)."""
+``shiftedscalequantization_tpu/models/zoo.py``): ResNet, MobileNetV2,
+RegNetX and MNASNet (scale 2.0)."""
 from __future__ import annotations
 
-from . import mobilenetv2, regnet, resnet
+from . import mnasnet, mobilenetv2, regnet, resnet
 from .resnet import init_params  # noqa: F401
 
 
@@ -25,12 +25,12 @@ def build(arch: str, num_classes: int | None = None,
         g = regnet.build_regnetx(arch, num_classes=nc, variant=variant)
         return g, regnet.torch_key_map
     if arch == "mnasnet":
-        raise NotImplementedError(
-            "arch 'mnasnet' is not ported yet (ROADMAP.md, queue 1, item 7)")
+        g = mnasnet.build_mnasnet(scale=2.0, num_classes=nc, variant=variant)
+        return g, mnasnet.torch_key_map
     raise ValueError(f"unknown arch {arch}")
 
 
 ARCHS = ["resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
          "mobilenetv2", "regnetx_200m", "regnetx_400m", "regnetx_600m",
          "regnetx_800m", "regnetx_1600m", "regnetx_3200m", "regnetx_4000m",
-         "regnetx_6400m"]
+         "regnetx_6400m", "mnasnet"]

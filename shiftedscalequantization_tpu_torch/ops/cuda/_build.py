@@ -56,6 +56,9 @@ SIGNATURES = {
     # C, KH, KW, SH, SW, PH, PW, N, G, pad, plan (group_conv.LaunchPlan as
     # ints), requant, stream
     "ssq_int8_group_conv": [_P] * 6 + [_I] * 14 + [_P] * 3,
+    # codes, w (S, C, K*K), table, acc_offset, delta, out, S, B, H, W, C, K,
+    # stride, pad, requant, stream
+    "ssq_dw_conv_int8": [_P] * 6 + [_I] * 8 + [_P, _P],
     # x, delta, zp, out, R, C, per_row, lo, hi, stream
     "ssq_fake_quant": [_P] * 4 + [_I] * 5 + [_P],
 }

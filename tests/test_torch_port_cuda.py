@@ -782,3 +782,126 @@ def test_reconstruct_node_step_on_card(card):
             <= 0.005
         assert float(((wc.alpha.cpu() >= 0) != (wh.alpha >= 0)).float()
                      .mean()) <= 0.005
+
+
+@pytest.mark.parametrize("b,h,w,c,k,stride,s", [
+    (4, 56, 56, 144, 5, 1, 1), (4, 56, 56, 144, 5, 2, 2),
+    (2, 28, 28, 240, 5, 1, 2), (8, 7, 7, 1152, 5, 1, 1),
+    (2, 112, 112, 32, 3, 1, 1), (2, 15, 13, 96, 3, 2, 3),
+    (3, 9, 11, 20, 5, 2, 4), (2, 10, 10, 30, 3, 1, 1)])
+def test_dw_conv_int8_kernel_matches_plain(card, b, h, w, c, k, stride, s):
+    """The integer depthwise kernel against its plain version: int32 sums
+    (S = 1), the scale-table sum, and a unit-site and two block requants,
+    bit-exact, one launch each, with codes of a 4-bit feed (offset 0) and
+    of a biased 8-bit one (offset 128); K 3 and 5, strides 1 and 2, odd
+    and short maps, S up to 4 (3 padded to 4), C % 4 != 0 (byte copies)
+    and C % 32 != 0 (a partial channel tile)."""
+    from shiftedscalequantization_tpu_torch.ops.cuda import dw_conv as TDC
+    g = torch.Generator(device=card).manual_seed(11)
+    wm = torch.randint(-2, 3, (s, c, k * k), generator=g, device=card,
+                       dtype=torch.int8)
+    geom = ((k, k), (stride, stride), (k // 2, k // 2))
+    table = torch.rand((s, c), generator=g, device=card) * 0.02 + 1e-3
+    delta = torch.tensor(0.37, device=card)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    for off_n in (0, 128):
+        span = 128 if off_n else 8
+        x = torch.randint(-span, span, (b, h, w, c), generator=g,
+                          device=card, dtype=torch.int8)
+        off = off_n * wm.sum(dim=2, dtype=torch.int32) if off_n else None
+        modes = [dict(group_scales=table, act_delta=delta)]
+        if s == 1:
+            modes.append({})
+        for rq in _requants(g, card, c, (b, ho, wo, c)).values():
+            modes.append(dict(group_scales=table, act_delta=delta,
+                              requant=rq))
+        for kw in modes:
+            before = TDC.dw_conv_int8.launches
+            got = TDC.dw_conv_int8(x, wm, *geom, pad_value=-off_n,
+                                   acc_offset=off, **kw)
+            torch.cuda.synchronize()
+            assert TDC.dw_conv_int8.launches == before + 1
+            want = TDC.dw_conv_int8_plain(x, wm, *geom, pad_value=-off_n,
+                                          acc_offset=off, **kw)
+            assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_dw_conv_int8_refuses_what_it_cannot_take(card):
+    """On a CUDA tensor the wrapper launches or raises: a 7x7 kernel, a
+    pad other than K // 2, unequal strides, a weight of the wrong shape."""
+    from shiftedscalequantization_tpu_torch.ops.cuda import dw_conv as TDC
+    x = torch.zeros((2, 8, 8, 16), dtype=torch.int8, device=card)
+    w = torch.zeros((1, 16, 9), dtype=torch.int8, device=card)
+    before = TDC.dw_conv_int8.launches
+    with pytest.raises(ValueError, match="K in"):
+        TDC.dw_conv_int8(x, torch.zeros((1, 16, 49), dtype=torch.int8,
+                                        device=card), (7, 7), (1, 1), (3, 3))
+    with pytest.raises(ValueError, match="K in"):
+        TDC.dw_conv_int8(x, w, (3, 3), (1, 1), (0, 0))
+    with pytest.raises(ValueError, match="K in"):
+        TDC.dw_conv_int8(x, w, (3, 3), (1, 2), (1, 1))
+    with pytest.raises(ValueError, match="w_mat"):
+        TDC.dw_conv_int8(x, torch.zeros((1, 8, 9), dtype=torch.int8,
+                                        device=card), (3, 3), (1, 1), (1, 1))
+    assert TDC.dw_conv_int8.launches == before
+
+
+def test_mnasnet_deploy_on_card_runs_dw_and_pairs(card, monkeypatch):
+    """MNASNet W2A4 (CIFAR variant, 32x32, batch 16) under SSQ_DW_KERNEL=1
+    SSQ_PACKED=1, plain and harmonized: the 5x5 and biased-fed depthwise
+    units on dw_conv_int8, pairs formed and consumed on int8_conv in the
+    plain state and none in the harmonized one, deploy == sim as bench.py
+    gates it (rel-MSE <= 1e-2), and on 1/8-grid images the card equals
+    the CPU plain path on the same state (rel-MSE <= 1e-8, same top-1)."""
+    import shiftedscalequantization_tpu_torch as tp
+    from shiftedscalequantization_tpu_torch import deploy as TD
+    from shiftedscalequantization_tpu_torch.models import zoo as TZ
+    from shiftedscalequantization_tpu_torch.ops.cuda import dw_conv as TDC
+    from shiftedscalequantization_tpu_torch.ops.cuda import int_matmul as TI
+    monkeypatch.setenv("SSQ_DW_KERNEL", "1")
+    monkeypatch.setenv("SSQ_PACKED", "1")
+    graph, _ = TZ.build("mnasnet", dataset="cifar10")
+    cfg = tp.QuantConfig(n_bits_w=2, n_bits_a=4)
+    params, qs = tp.prepare_model(graph, TZ.init_params(graph, device=card),
+                                  cfg, device=card)
+    x = np.random.default_rng(0).normal(size=(16, 32, 32, 3))
+    x = torch.as_tensor((np.round(x * 8) / 8).astype(np.float32),
+                        device=card)
+    qs = tp.calibrate_acts(graph, params, qs, x, cfg, device=card)
+    dp = TD.build_deploy_params(graph, params, qs, device=card)
+    cpu = lambda d: {k: (v.cpu() if torch.is_tensor(v) else v)  # noqa
+                     for k, v in d.__dict__.items()}
+    dp_cpu = {k: TD.DeployUnit(**cpu(v)) for k, v in dp.items()}
+    for state in ("plain", "harmonized"):
+        if state == "harmonized":
+            qs, _ = tp.quantize.harmonize_residual_chains(graph, qs)
+        steps = TD.act_steps_from_qstate(graph, qs)
+        plan = TD.make_deploy_plan(graph, dp, steps, input_hw=(32, 32))
+        TDC.dw_conv_int8.launches = TI.int8_conv.launches = 0
+        dep = TD.deploy_forward(graph, dp, steps, x, plan=plan, device=card)
+        torch.cuda.synchronize()
+        dw_units = sum(v[0] in ("bf16_codes", "int8")
+                       and n.endswith("layers.3")
+                       for n, v in plan.items() if not n.startswith("__"))
+        assert TDC.dw_conv_int8.launches == dw_units >= 10
+        if state == "plain":
+            assert TD.pair_stats["formed"] > 0
+            # two terms a pair at the default cap
+            assert TI.int8_conv.launches == \
+                2 * TD.pair_stats["consumed_fast"] > 0
+        else:
+            assert TD.pair_stats["formed"] == 0
+        sim = tp.forward(graph, params, qs, x,
+                         tp.quantize.act_flags(
+                             graph, cfg, base=tp.Flags().all_weights(graph)),
+                         device=card)
+        rel = float(((sim - dep) ** 2).mean() / (sim ** 2).mean())
+        assert torch.isfinite(dep).all() and rel <= 1e-2, (state, rel)
+        steps_cpu = {k: (d.cpu(), z.cpu(), n)
+                     for k, (d, z, n) in steps.items()}
+        dep_cpu = TD.deploy_forward(graph, dp_cpu, steps_cpu, x.cpu(),
+                                    plan=plan, device="cpu")
+        rel_cpu = float(((dep.cpu() - dep_cpu) ** 2).mean()
+                        / (dep_cpu ** 2).mean())
+        assert rel_cpu <= 1e-8, (state, rel_cpu)
+        assert torch.equal(dep.cpu().argmax(-1), dep_cpu.argmax(-1))

@@ -241,33 +241,77 @@ def test_unported_plan_kind_raises(state, monkeypatch, kind):
 
 def test_pair_transport_raises():
     """A siteless residual block (no post-activation, no block act site)
-    whose two code grids have different steps would need pair transport,
-    which is not ported; with the steps made equal, the exact int8 code
-    add of a harmonized chain runs and deploy matches sim."""
-    def conv(name, cin, cout, act=None, k=3):
-        return UnitSpec(name=name, kind="conv", in_ch=cin, out_ch=cout,
-                        kernel=(k, k), padding=(k // 2, k // 2),
-                        activation=act)
+    whose two code grids have different steps hands its sum on as a pair
+    (the name is from when pair transport raised): its 1x1 consumer runs
+    one integer conv per term, and deploy matches the JAX package's
+    deploy (pair_stats too) and the sim forward; with the cap below 2 the
+    exact f32 sum serves instead. With the steps made equal, the exact
+    int8 code add of a harmonized chain runs."""
+    from shiftedscalequantization_tpu import graph as JG
+    from shiftedscalequantization_tpu.quantize import \
+        act_flags as j_act_flags
 
-    graph = (conv("stem", 3, 16, "relu"),
-             BlockSpec(name="blk", units=(conv("blk.a", 16, 16, "relu"),
-                                          conv("blk.b", 16, 16)),
-                       residual=True, post_activation=None,
-                       block_act_quant=False),
-             OpSpec("gap", "gap"),
-             UnitSpec(name="fc", kind="linear", in_ch=16, out_ch=8))
-    cfg = tp.QuantConfig(n_bits_w=4, n_bits_a=4, w_scale_method="max",
-                         a_scale_method="max", use_8bit_head_stem=False)
-    params, qs = tp.prepare_model(graph, TZ.init_params(graph, device="cpu"),
-                                  cfg, device="cpu")
-    x = torch.as_tensor(np.random.default_rng(0).normal(
-        size=(32, 8, 8, 3)).astype(np.float32))
-    qs = tp.calibrate_acts(graph, params, qs, x, cfg, device="cpu")
-    dp = TD.build_deploy_params(graph, params, qs, device="cpu")
+    def graph_of(G):
+        def conv(name, cin, cout, act=None, k=3):
+            return G.UnitSpec(name=name, kind="conv", in_ch=cin,
+                              out_ch=cout, kernel=(k, k),
+                              padding=(k // 2, k // 2), activation=act)
+
+        return (conv("stem", 3, 16, "relu"),
+                G.BlockSpec(name="blk",
+                            units=(conv("blk.a", 16, 16, "relu"),
+                                   conv("blk.b", 16, 16)),
+                            residual=True, post_activation=None,
+                            block_act_quant=False),
+                conv("post", 16, 16, "relu", k=1),
+                G.OpSpec("gap", "gap"),
+                G.UnitSpec(name="fc", kind="linear", in_ch=16, out_ch=8))
+
+    gj = graph_of(JG)
+    graph = graph_of(tp.graph)
+    cfg = ssq.QuantConfig(n_bits_w=4, n_bits_a=4, w_scale_method="max",
+                          a_scale_method="max", use_8bit_head_stem=False)
+    tcfg = tp.QuantConfig(n_bits_w=4, n_bits_a=4, w_scale_method="max",
+                          a_scale_method="max", use_8bit_head_stem=False)
+    raw = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                       TZ.init_params(graph, device="cpu"))
+    params, jqs = ssq.prepare_model(gj, raw, cfg)
+    xn = np.random.default_rng(0).normal(size=(32, 8, 8, 3))
+    xn = (np.round(xn * 8) / 8).astype(np.float32)
+    x = torch.as_tensor(xn)
+    jqs = ssq.calibrate_acts(gj, params, jqs, jnp.asarray(xn), cfg)
+    tparams = JI.params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    qs = JI.qstate_from_numpy(jax.tree.map(np.asarray, jqs), "cpu")
+    dp = TD.build_deploy_params(graph, tparams, qs, device="cpu")
+    jdp = JD.build_deploy_params(gj, params, jqs)
     steps = TD.act_steps_from_qstate(graph, qs)
+    jsteps = JD.act_steps_from_qstate(gj, jqs)
     assert float(steps["stem"][0]) != float(steps["blk.b"][0])
-    with pytest.raises(NotImplementedError, match="pair transport"):
-        TD.deploy_forward(graph, dp, steps, x, device="cpu")
+    plan = TD.make_deploy_plan(graph, dp, steps, input_hw=(8, 8))
+    jplan = JD.make_deploy_plan(gj, jdp, jsteps, input_hw=(8, 8))
+    assert {k: v for k, v in plan.items() if not k.startswith("__")} == \
+        {k: v for k, v in jplan.items() if not k.startswith("__")}
+    assert plan["post"] == ("float", None)
+    sim = tp.forward(graph, tparams, qs, x,
+                     act_flags(graph, tcfg, base=tp.Flags().all_weights(
+                         graph)), device="cpu")
+    deps = {}
+    for terms in ("2", "0"):
+        with pytest.MonkeyPatch.context() as m:
+            m.setenv("SSQ_PAIR_TERMS", terms)
+            dep = TD.deploy_forward(graph, dp, steps, x, plan=plan,
+                                    device="cpu")
+            stats = dict(TD.pair_stats)
+            want = np.asarray(JD.deploy_forward(gj, jdp, jsteps,
+                                                jnp.asarray(xn), plan=jplan))
+        assert stats == JD.pair_stats == (
+            {"formed": 1, "consumed_fast": 1} if terms == "2"
+            else {"formed": 0, "consumed_fast": 0})
+        assert _rel_mse(dep.numpy(), want) <= 1e-8
+        rel = float((sim - dep).abs().mean() / (sim.abs().mean() + 1e-9))
+        assert rel < 0.02, rel
+        deps[terms] = dep
+    assert _rel_mse(deps["2"].numpy(), deps["0"].numpy()) <= 1e-8
     # harmonize: the block's last unit takes the entry grid's step
     qs = dict(qs)
     qs["blk.b"] = dataclasses.replace(
@@ -277,8 +321,9 @@ def test_pair_transport_raises():
     plan = TD.make_deploy_plan(graph, dp, steps, input_hw=(8, 8))
     assert "blk__sum__" in plan["__sum_steps__"]
     dep = TD.deploy_forward(graph, dp, steps, x, plan=plan, device="cpu")
-    sim = tp.forward(graph, params, qs, x,
-                     act_flags(graph, cfg, base=tp.Flags().all_weights(graph)),
-                     device="cpu")
+    assert TD.pair_stats["formed"] == 0
+    sim = tp.forward(graph, tparams, qs, x,
+                     act_flags(graph, tcfg, base=tp.Flags().all_weights(
+                         graph)), device="cpu")
     rel = float((sim - dep).abs().mean() / (sim.abs().mean() + 1e-9))
     assert rel < 0.02, rel

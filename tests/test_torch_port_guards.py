@@ -35,7 +35,8 @@ def test_port_and_smoke_script_import_no_jax():
                 "data/datasets.py", "data/realdata.py", "utils/config.py",
                 "utils/logging.py", "utils/eval.py", "utils/checkpoint.py",
                 "models/regnet.py", "ops/cuda/group_conv.py",
-                "ops/act_quant.py", "recon/search.py"):
+                "ops/act_quant.py", "recon/search.py", "models/mnasnet.py",
+                "ops/cuda/dw_conv.py"):
         assert PORT / new in files, new
     for path in files:
         for name in _imports(path):
@@ -48,9 +49,9 @@ def test_kernel_sources_and_build_command():
     linked into one library loaded with ctypes; the package carries no
     torch extension build."""
     srcs = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert srcs == ["dw_conv3x3.cu", "fake_quant.cu", "int8_group_conv.cu",
-                    "int_matmul.cu", "mbconv_fused.cu", "packed_qmm.cu",
-                    "stem_fused.cu"]
+    assert srcs == ["dw_conv3x3.cu", "dw_conv_int8.cu", "fake_quant.cu",
+                    "int8_group_conv.cu", "int_matmul.cu", "mbconv_fused.cu",
+                    "packed_qmm.cu", "stem_fused.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # the fake-quant kernel divides and rounds half to even as the plain
     # version does; fast math would turn the division into a reciprocal

@@ -27,6 +27,7 @@ import shiftedscalequantization_tpu_torch as tp
 from shiftedscalequantization_tpu_torch import deploy as TD
 from shiftedscalequantization_tpu_torch.models import zoo as TZ
 from shiftedscalequantization_tpu_torch.ops.cuda import depthwise as TDW
+from shiftedscalequantization_tpu_torch.ops.cuda import dw_conv as TDC
 from shiftedscalequantization_tpu_torch.quantize import \
     act_flags as t_act_flags
 from shiftedscalequantization_tpu_torch.utils import jax_import as JI
@@ -337,8 +338,10 @@ def test_dw_units_launch_from_plan_constants(state, monkeypatch):
 
 def test_depthwise_integer_route_is_exact():
     """The plain depthwise accumulate that serves bf16_codes and int8
-    units equals a grouped float64 conv of the centered codes (exact),
-    for a biased feed (offset 128) and a centered one, strides 1 and 2."""
+    units (the dw_conv_int8 kernel's plain version: pad -offset, offset *
+    sum(w) added back) equals a grouped float64 conv of the centered codes
+    (exact), for a biased feed (offset 128) and a centered one, strides 1
+    and 2."""
     rng = np.random.default_rng(5)
     for stride, offset in ((1, 128), (2, 0), (2, 128), (1, 3)):
         spec = tp.UnitSpec(name="dw", kind="conv", in_ch=12, out_ch=12,
@@ -348,7 +351,11 @@ def test_depthwise_integer_route_is_exact():
                              dtype=torch.int8)
         w = torch.as_tensor(rng.integers(-2, 2, (12, 1, 3, 3)),
                             dtype=torch.int8)
-        got = TD._dw_int_acc(spec, w, xi, offset)
+        w_mat = TD._gemm_operand(w[None])
+        got = TDC.dw_conv_int8(
+            xi, w_mat, spec.kernel, spec.stride, spec.padding,
+            pad_value=-offset,
+            acc_offset=offset * w_mat.sum(dim=2, dtype=torch.int32))
         want = torch.nn.functional.conv2d(
             (xi.double() + offset).permute(0, 3, 1, 2), w.double(), None,
             stride, 1, 1, 12).permute(0, 2, 3, 1)

@@ -209,9 +209,12 @@ def test_graph_and_key_map_match_jax(arch):
 def test_zoo_registry():
     assert [a for a in TZ.ARCHS if a.startswith("regnetx")] == \
         [a for a in JZ.ARCHS if a.startswith("regnetx")]
-    assert set(TZ.ARCHS) == set(JZ.ARCHS) - {"mnasnet"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-        TZ.build("mnasnet")
+    assert TZ.ARCHS == JZ.ARCHS
+    gt, kt = TZ.build("mnasnet")
+    gj, kj = JZ.build("mnasnet")
+    assert [dataclasses.asdict(n) for n in gt] == \
+        [dataclasses.asdict(n) for n in gj]
+    assert kt(gt) == kj(gj)
     with pytest.raises(ValueError):
         TZ.build("regnety_600m")
 

@@ -271,12 +271,15 @@ def _port_state(arch, dataset, hw, shifted):
 # (path, arch, dataset, input size, method state, switches, requants left
 # to PyTorch elementwise). ImageNet ResNet-18 at 64x64 keeps the fused
 # stem; the CIFAR variant's 3x3 float stem requantizes elementwise, as
-# MobileNetV2's float_1p stem and the bf16_codes depthwise unit after it
+# MobileNetV2's float_1p stem (the bf16_codes depthwise unit after it
+# requantizes in dw_conv_int8's epilogue) and MNASNet's, whose ten float
+# units fed by a pair or an f32 sum requantize elementwise too
 PATHS = [
     ("resnet18-uniform", "resnet18", "imagenet", 64, False, R18_SERVING, 0),
     ("resnet18-method", "resnet18", "imagenet", 64, True, R18_SERVING, 0),
     ("resnet18-cifar", "resnet18", "cifar10", 32, True, R18_SERVING, 1),
-    ("mobilenetv2", "mobilenetv2", "imagenet", 64, False, MNV2_SERVING, 2),
+    ("mobilenetv2", "mobilenetv2", "imagenet", 64, False, MNV2_SERVING, 1),
+    ("mnasnet", "mnasnet", "imagenet", 64, False, MNV2_SERVING, 11),
 ]
 
 
@@ -340,7 +343,7 @@ def _jax_state(arch, hw, shifted, width=1.0):
 
 @pytest.mark.parametrize("case", [
     ("resnet18-method", "resnet18", True, 1.0, R18_SERVING, 1),
-    ("mobilenetv2-narrow", "mobilenetv2", False, 0.5, MNV2_SERVING, 2)],
+    ("mobilenetv2-narrow", "mobilenetv2", False, 0.5, MNV2_SERVING, 1)],
     ids=lambda c: c[0])
 def test_deploy_forward_matches_jax(case, monkeypatch):
     """The port's deploy forward through the requant epilogues against the
@@ -364,9 +367,14 @@ def test_deploy_forward_matches_jax(case, monkeypatch):
 
 def test_switches_are_unchanged():
     """The route adds no switch: deploy reads only the JAX package's four
-    environment switches."""
+    plan switches and its pair-term cap, SSQ_PAIR_TERMS (each one a switch
+    of the JAX deploy module)."""
     import inspect
     import re
-    read = set(re.findall(r'os\.environ\.get\("(SSQ_\w+)"',
-                          inspect.getsource(TD)))
-    assert read == set(SWITCHES)
+
+    def read(module):
+        return set(re.findall(r'os\.environ\.get\(\s*"(SSQ_\w+)"',
+                              inspect.getsource(module)))
+
+    assert read(TD) == set(SWITCHES) | {"SSQ_PAIR_TERMS"}
+    assert read(TD) < read(JD)

@@ -233,7 +233,10 @@ non-zero exit and no result line:
    followed by quantize_out); timed by CUDA-graph replay in the path's
    mode (eager beside) next to its bound, the plain version (the shifted
    int32 multiply-adds it replaces, requant elementwise) and cuDNN's bf16
-   depthwise conv on the same codes;
+   depthwise conv on the same codes; then at DW_ODD_SHAPES (C = 36 and
+   100: 4-byte copies; C = 30: bytes; a codes view one byte off; planes
+   no tile divides, 1x1 and 2x2; S = 2, 3, 4), torch.equal in sums mode
+   and in every requant variant, offsets 0 and 128;
 33. mnasnet cli: the port's CLI on the trained MNASNet (CIFAR variant,
    synth10), MNASNET_CLI_COMMON (brecq W2A4) without and with
    --harmonize_residual, each in its own process under
@@ -3010,6 +3013,21 @@ MNASNET_LAUNCHES = {
 # site) is the one depthwise unit of its serving path on dw_conv_int8:
 # (H, W, C, K, stride, offset)
 MNV2_DW_INT8_SHAPE = (112, 112, 32, 3, 1, 128)
+# phase 32: dw_conv_int8 away from the path's shapes, each case at
+# offsets 0 and 128 and weight groups 1 and s_top: (batch, H, W, C, K,
+# stride, s_top, codes view misaligned by a byte). C = 36 and 100 (a
+# multiple of 4, not of 16: 4-byte copies), 30 (bytes); planes that no
+# tile divides (13x11, 9x10, 15x13, 12x17), 1x1 and 2x2; a codes view one
+# byte off (byte copies at C = 48)
+DW_ODD_SHAPES = [(3, 13, 11, 36, 5, 1, 4, False),
+                 (2, 9, 10, 100, 3, 2, 3, False),
+                 (4, 1, 1, 100, 3, 1, 2, False),
+                 (4, 2, 2, 36, 5, 2, 4, False),
+                 (2, 2, 2, 100, 5, 1, 3, False),
+                 (2, 1, 1, 36, 5, 2, 2, False),
+                 (2, 15, 13, 30, 5, 2, 3, False),
+                 (2, 12, 17, 48, 3, 1, 2, True),
+                 (2, 13, 11, 48, 5, 2, 4, True)]
 # phase 33: the port's CLI on the trained MNASNet (CIFAR variant) on
 # synth10, brecq W2A4, with and without --harmonize_residual, each in a
 # process of its own under MNASNET_CLI_TIMEOUT_S (each about 115 s on the
@@ -3138,6 +3156,67 @@ def check_dw_conv(torch, gen, dwc, requant, deploy, shapes):
     return rows
 
 
+def check_dw_conv_odd(torch, gen, dwc, requant, deploy):
+    """dw_conv_int8 at DW_ODD_SHAPES: torch.equal with the plain version
+    in sums mode (int32 and the scale-table sum at S = 1, the scale-table
+    sum at the case's S) and in every requant variant of REQUANT_VARIANTS
+    at both S, offsets 0 and 128."""
+    ctx = requant_context(torch, deploy, DEVICE)
+    delta = torch.tensor(0.37, device=DEVICE)
+    for b, h, w, c, k, st, s_top, skew in DW_ODD_SHAPES:
+        geom = ((k, k), (st, st), (k // 2, k // 2))
+        ho, wo = (h - 1) // st + 1, (w - 1) // st + 1
+        ws = torch.randint(-2, 3, (s_top, c, k * k), generator=gen,
+                           device=DEVICE, dtype=torch.int8)
+        res = residuals(torch, gen, (b, ho, wo, c), DEVICE)
+        label = (f"dw_conv_int8 {h}x{w}x{c} k{k}/s{st} batch {b}"
+                 + (", codes one byte off" if skew else ""))
+        for offset in (0, 128):
+            lo = -128 if offset else -8
+            buf = torch.randint(lo, -lo, (b * h * w * c + int(skew),),
+                                generator=gen, device=DEVICE,
+                                dtype=torch.int8)
+            x = buf[int(skew):].view(b, h, w, c)
+            if skew and x.data_ptr() % 4 == 0:
+                raise AssertionError(f"{label}: the view is aligned")
+            # the taps inside the image set the spread of the sums
+            taps = min(h, k) * min(w, k)
+            scale, bias = _scaled(torch, gen, c, DEVICE, (
+                209.0 if offset else 6.6) * math.sqrt(taps))
+            for s_n in (1, s_top):
+                wm = ws[:s_n].contiguous()
+                table = torch.stack([scale * (0.5 + 0.25 * s)
+                                     for s in range(s_n)]) / delta
+                base = dict(pad_value=-offset, acc_offset=offset * wm.sum(
+                    dim=2, dtype=torch.int32) if offset else None)
+                tab = dict(base, group_scales=table, act_delta=delta)
+                for mode, kw in (("int32", base), ("table", tab)):
+                    if mode == "int32" and s_n > 1:
+                        continue
+                    got = dwc.dw_conv_int8(x, wm, *geom, **kw)
+                    want = dwc.dw_conv_int8_plain(x, wm, *geom, **kw)
+                    torch.cuda.synchronize()
+                    if got.dtype != want.dtype or not torch.equal(got, want):
+                        raise AssertionError(
+                            f"{label} S={s_n} offset {offset} {mode}: "
+                            "sums differ from the plain version")
+                # the requant's input: the int32 sums at S = 1 (deploy's
+                # pending scale and bias), else the scale-table sum
+                kw = base if s_n == 1 else tab
+                value = dwc.dw_conv_int8_plain(x, wm, *geom, **kw).float()
+                pend = deploy._Pending(value, scale, bias) if s_n == 1 \
+                    else deploy._Pending(value, None, bias)
+                check_requant_modes(
+                    torch, deploy, requant,
+                    f"{label} S={s_n} offset {offset}",
+                    lambda rq: dwc.dw_conv_int8(x, wm, *geom, requant=rq,
+                                                **kw),
+                    value, pend, res, ctx)
+        print(f"  {label}: int32 and scale-table sums and "
+              f"{len(REQUANT_VARIANTS)} requant variants bit-exact at S = "
+              f"1, {s_top} and offsets 0, 128", flush=True)
+
+
 def mnasnet_phases(torch, gen, mnv2_dw_count):
     """Phases 31-32: ImageNet MNASNet W2A4 at full width, plain and
     harmonized, served under SSQ_DW_KERNEL=1 SSQ_PACKED=1 (plan kinds,
@@ -3242,6 +3321,7 @@ def mnasnet_phases(torch, gen, mnv2_dw_count):
     if sum(r.get("mnasnet", 0) for r in shapes.values()) != 11:
         raise AssertionError(f"mnasnet dw_conv_int8 shapes {shapes}")
     dw_rows = check_dw_conv(torch, gen, dw_conv, requant, deploy, shapes)
+    check_dw_conv_odd(torch, gen, dw_conv, requant, deploy)
     phase("dw_conv_int8 kernel", t0)
     return dict(setup_s=setup_s, served=served, pair_terms_0=off,
                 harmonized_sites=len(ratios), dw_rows=dw_rows)
@@ -3908,6 +3988,13 @@ def main():
              "library_ms")},
          "ms_by_path": {p: per_dw(mn["dw_rows"], "ms", p)
                         for p in ("mnasnet", "mobilenetv2")},
+         "ms_by_shape": {
+             "{}x{}x{} k{}/s{} offset {}".format(*r["shape"]): {
+                 k: r[k] for k in ("ms", "bound_ms", "library_ms")}
+             for r in mn["dw_rows"]},
+         "status": "redesigned: tiles fitted to the shape, 4 channels a "
+                   "thread with dp4a, cp.async staging, word-wide requant "
+                   "stores",
          "bound_by": max(mn["dw_rows"],
                          key=lambda r: r["bound_ms"])["bound_by"]},
     ]

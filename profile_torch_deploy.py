@@ -3,13 +3,17 @@
 card: an ImageNet model at W2A4, batch 256, 224x224, the state
 chip_smoke.py builds.
 
-    python3 profile_torch_deploy.py [--arch resnet18|mobilenetv2|regnetx_600m]
-                                    [--shifted]
+    python3 profile_torch_deploy.py
+        [--arch resnet18|mobilenetv2|regnetx_600m|mnasnet] [--shifted]
+        [--harmonized]
 
 ``--shifted`` (ResNet-18, RegNetX-600M) serves the model quantized by
 the method's fused shifted-scale quantizers, hardened to the baked
-scale-table form, as chip_smoke.py's method path does. RegNetX-600M takes
-chip_smoke.py's numpy-drawn weights and calibration images.
+scale-table form, as chip_smoke.py's method path does. RegNetX-600M and
+MNASNet take chip_smoke.py's numpy-drawn weights and calibration images
+(MNASNet in its plain state, as chip_smoke.py's phase 31 builds it, or
+with ``--harmonized`` in its harmonized state: the residual chains'
+act sites re-stepped by ``quantize.harmonize_residual_chains``).
 
 Prints, for the card named by nvidia-smi (name, power limit):
 - ms/batch (CUDA events) of the deploy forward under three plans, timed in
@@ -21,7 +25,9 @@ Prints, for the card named by nvidia-smi (name, power limit):
   units on the plain integer route, 1x1 convs on the integer GEMM or the
   integer route). RegNetX-600M: 'serving' (the JAX package's defaults:
   float_1p stem, int8_bd, grouped units on the grouped kernel) and
-  'packed' (SSQ_PACKED=1). And the port's float forward in bf16 (no
+  'packed' (SSQ_PACKED=1). MNASNet: 'serving' (SSQ_DW_KERNEL=1
+  SSQ_PACKED=1: its 5x5 and stem-fed depthwise units on dw_conv_int8).
+  And the port's float forward in bf16 (no
   quantizers),
   the JAX bench's baseline;
 - the host's time to issue one serving forward (wall clock of the
@@ -61,11 +67,15 @@ PLANS = {
         "serving": {"SSQ_STEM_KERNEL": "0", "SSQ_PACKED": "0",
                     "SSQ_DW_KERNEL": "0", "SSQ_STEM_1PASS": "1"},
         "packed": {"SSQ_STEM_KERNEL": "0", "SSQ_PACKED": "1",
-                   "SSQ_DW_KERNEL": "0", "SSQ_STEM_1PASS": "1"}}}
+                   "SSQ_DW_KERNEL": "0", "SSQ_STEM_1PASS": "1"}},
+    "mnasnet": {
+        "serving": {"SSQ_STEM_KERNEL": "0", "SSQ_DW_KERNEL": "1",
+                    "SSQ_PACKED": "1", "SSQ_STEM_1PASS": "1"}}}
 GROUPS = (("int8_conv kernel", ("igemm_kernel",)),
           ("stem kernel", ("stem_fused_kernel",)),
           ("packed kernel", ("packed_qmm_kernel",)),
           ("dw kernel", ("dw_conv3x3_kernel",)),
+          ("dw_conv_int8 kernel", ("dw_conv_int8_kernel",)),
           ("group conv kernel", ("group_conv_kernel",)),
           ("integer GEMM", ("gemm", "igemm", "cutlass", "xmma", "imma")),
           ("copies", ("copy", "cat", "Cat", "stack")),
@@ -86,15 +96,20 @@ def main():
     ap.add_argument("--shifted", action="store_true",
                     help="ResNet-18 or RegNetX-600M quantized by the "
                     "method (baked state)")
+    ap.add_argument("--harmonized", action="store_true",
+                    help="MNASNet in its harmonized state")
     args = ap.parse_args()
-    if args.shifted and args.arch == "mobilenetv2":
+    if args.shifted and args.arch in ("mobilenetv2", "mnasnet"):
         ap.error("--shifted serves ResNet-18 and RegNetX-600M only")
+    if args.harmonized and args.arch != "mnasnet":
+        ap.error("--harmonized serves MNASNet only")
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_deploy: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from shiftedscalequantization_tpu_torch import deploy
+    from shiftedscalequantization_tpu_torch import quantize as Q
     from shiftedscalequantization_tpu_torch.graph import Flags, forward
 
     smi = subprocess.run(
@@ -105,7 +120,11 @@ def main():
     graph, _, params, qstate, dparams, steps = \
         chip_smoke.serving_setup(torch, gen, args.arch,
                                  shifted=args.shifted,
-                                 host=args.arch == "regnetx_600m")
+                                 host=args.arch in ("regnetx_600m",
+                                                    "mnasnet"))
+    if args.harmonized:
+        qstate, _ = Q.harmonize_residual_chains(graph, qstate)
+        steps = deploy.act_steps_from_qstate(graph, qstate)
     plan_envs = PLANS[args.arch]
     x = torch.randn((chip_smoke.BATCH, chip_smoke.HW, chip_smoke.HW, 3),
                     generator=gen, device="cuda")
@@ -159,7 +178,8 @@ def main():
     top = sorted(events, key=lambda e: -e.device_time_total)[:15]
 
     print(smi)
-    label = args.arch + (" (shifted)" if args.shifted else "")
+    label = args.arch + (" (shifted)" if args.shifted else "") \
+        + (" (harmonized)" if args.harmonized else "")
     print(f"{label}: plan kinds {{name: kind counts}}:")
     for name, plan in plans.items():
         kinds = [v[0] for k, v in plan.items() if not k.startswith("__")]
@@ -178,8 +198,9 @@ def main():
         print(f"  {e.device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
               f"{e.key[:90]}")
     os.makedirs("chiprun_out", exist_ok=True)
-    out = "chiprun_out/profile_torch_deploy_" \
-        + label.replace(" (shifted)", "_shifted") + ".txt"
+    out = "chiprun_out/profile_torch_deploy_" + label.replace(
+        " (shifted)", "_shifted").replace(" (harmonized)", "_harmonized") \
+        + ".txt"
     with open(out, "w") as f:
         f.write(f"{smi}; {label}\n")
         f.write(prof.key_averages().table(sort_by="device_time_total",

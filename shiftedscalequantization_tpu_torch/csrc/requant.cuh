@@ -76,18 +76,41 @@ __device__ __forceinline__ void load_cols(float (&d)[CW], const float* p) {
   }
 }
 
-// CW consecutive outputs at out + o (row-major (M, N) index o), columns
-// nn.. of the requant terms cols (cols[t * cstride + nn], t = m1, c1, m2,
-// c2; load_requant_cols): v holds their f32 values (int32 bits for
-// STORE_I32), stored as they are or through the requant as int8 codes, in
-// 16-byte pieces where CW allows (o a multiple of CW, the residual and
-// out 16-byte aligned).
-template <int CW>
-__device__ __forceinline__ void store_chunk(float (&v)[CW], int mode,
-                                            const Requant& q,
-                                            const RequantScalars& s,
-                                            const float* cols, int cstride,
-                                            int nn, size_t o, void* out) {
+// The requant terms of a chunk's CW columns (t = 0..3: m1, c1, m2, c2),
+// read by store_chunk_cols through get(d, t): SmemCols from a block's
+// columns in shared memory (cols[t * cstride + nn..]; load_requant_cols),
+// RegCols from registers a thread loaded once.
+struct SmemCols {
+  const float* cols;
+  int cstride, nn;
+  template <int CW>
+  __device__ __forceinline__ void get(float (&d)[CW], int t) const {
+    load_cols<CW, false>(d, cols + t * cstride + nn);
+  }
+};
+
+template <int N>
+struct RegCols {
+  float t[4][N];
+  template <int CW>
+  __device__ __forceinline__ void get(float (&d)[CW], int k) const {
+#pragma unroll
+    for (int j = 0; j < CW; ++j) d[j] = t[k][j];
+  }
+};
+
+// CW consecutive outputs at out + o (row-major (M, N) index o), their
+// requant terms from cols: v holds their f32 values (int32 bits for
+// STORE_I32), stored as they are or through the requant as int8 codes,
+// codes (and an int8 residual's codes) 16, 8 or 4 bytes at a time where
+// CW allows (o a multiple of CW, the residual and out 16-byte aligned).
+template <int CW, class Cols>
+__device__ __forceinline__ void store_chunk_cols(float (&v)[CW], int mode,
+                                                 const Requant& q,
+                                                 const RequantScalars& s,
+                                                 const Cols& cols, size_t o,
+                                                 void* out) {
+  constexpr bool PACK = CW >= 4;
   if (mode == STORE_F32 || mode == STORE_I32) {
     float* dst = reinterpret_cast<float*>(out) + o;     // int32 bits as is
     if (CW % 4 == 0) {
@@ -103,12 +126,12 @@ __device__ __forceinline__ void store_chunk(float (&v)[CW], int mode,
   }
   float t[CW];
   if (q.m1) {
-    load_cols<CW, false>(t, cols + nn);
+    cols.get(t, 0);
 #pragma unroll
     for (int j = 0; j < CW; ++j) v[j] = __fmul_rn(v[j], t[j]);
   }
   if (q.c1) {
-    load_cols<CW, false>(t, cols + cstride + nn);
+    cols.get(t, 1);
 #pragma unroll
     for (int j = 0; j < CW; ++j) v[j] = __fadd_rn(v[j], t[j]);
   }
@@ -118,11 +141,11 @@ __device__ __forceinline__ void store_chunk(float (&v)[CW], int mode,
       v[j] = __fsub_rn(fminf(fmaxf(floorf(v[j]), s.lo1), s.hi1), s.sub1);
   }
   if (q.res) {
-    load_cols<CW, false>(t, cols + 2 * cstride + nn);
+    cols.get(t, 2);
 #pragma unroll
     for (int j = 0; j < CW; ++j) v[j] = __fmul_rn(v[j], t[j]);
     if (q.res == 2) {
-      // CW int8 residual codes, 16 or 8 bytes at a time
+      // CW int8 residual codes, 16, 8 or 4 bytes at a time
       const int8_t* r = reinterpret_cast<const int8_t*>(q.r) + o;
       uint32_t rw[CW >= 4 ? CW / 4 : 1];
       if (CW == 16) {
@@ -132,11 +155,12 @@ __device__ __forceinline__ void store_chunk(float (&v)[CW], int mode,
       } else if (CW == 8) {
         const int2 x = __ldg(reinterpret_cast<const int2*>(r));
         rw[0] = x.x, rw[CW >= 8 ? 1 : 0] = x.y;
+      } else if (CW == 4) {
+        rw[0] = __ldg(reinterpret_cast<const unsigned int*>(r));
       }
 #pragma unroll
       for (int j = 0; j < CW; ++j) {
-        const int rj = CW >= 8 ? (int8_t)(rw[j / 4] >> (8 * (j % 4)))
-                               : r[j];
+        const int rj = PACK ? (int8_t)(rw[j / 4] >> (8 * (j % 4))) : r[j];
         v[j] = __fadd_rn(v[j], __fmul_rn((float)rj, s.mr));
       }
     } else if (q.res == 3) {
@@ -145,14 +169,14 @@ __device__ __forceinline__ void store_chunk(float (&v)[CW], int mode,
       for (int j = 0; j < CW; ++j)
         v[j] = __fadd_rn(v[j], __fmul_rn(t[j], s.mr));
     }
-    load_cols<CW, false>(t, cols + 3 * cstride + nn);
+    cols.get(t, 3);
 #pragma unroll
     for (int j = 0; j < CW; ++j)
       v[j] = __fsub_rn(fminf(fmaxf(floorf(__fadd_rn(v[j], t[j])), s.lo2),
                             s.hi2), s.sub2);
   }
   int8_t* dst = reinterpret_cast<int8_t*>(out) + o;
-  if (CW >= 8) {
+  if (PACK) {
     uint32_t w[CW >= 4 ? CW / 4 : 1];
 #pragma unroll
     for (int k = 0; k < CW / 4; ++k)
@@ -164,12 +188,122 @@ __device__ __forceinline__ void store_chunk(float (&v)[CW], int mode,
       *reinterpret_cast<uint4*>(dst) =
           make_uint4(w[0], w[CW >= 8 ? 1 : 0], w[CW >= 16 ? 2 : 0],
                      w[CW >= 16 ? 3 : 0]);
-    else
+    else if (CW == 8)
       *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[CW >= 8 ? 1 : 0]);
+    else
+      *reinterpret_cast<uint32_t*>(dst) = w[0];
   } else {
 #pragma unroll
     for (int j = 0; j < CW; ++j) dst[j] = (int8_t)(int)v[j];
   }
+}
+
+// The codes path of store_chunk_cols without a conversion instruction
+// (each costs 8 times an f32 add on the card), for CW a multiple of 4
+// with the words path's alignment, when requant_fast_ok holds: every grid
+// bound and offset an integer of at most 2^21 in magnitude. The same
+// codes bit for bit:
+// - clip(floor(u), lo, hi) = floor(clip(u, lo, hi)) for integers lo <= hi
+//   (NaN and infinities included: fmaxf drops a NaN), and for |x| <= 2^21
+//   the float __fadd_rd(x, MAGIC) is MAGIC + floor(x), so its bits less
+//   MAGIC's are floor(x);
+// - that integer less the offset, cut to its low byte, is the int8 cast
+//   of the float that store_chunk_cols casts;
+// - an int8 residual code r is float(r) by small_int_to_float.
+constexpr float MAGIC = 12582912.0f;       // 1.5 * 2^23
+constexpr int MAGIC_BITS = 0x4B400000;     // its bits
+
+// float(i) for |i| < 2^22, exactly
+__device__ __forceinline__ float small_int_to_float(int i) {
+  return __fsub_rn(__int_as_float(MAGIC_BITS + i), MAGIC);
+}
+
+__device__ __forceinline__ bool requant_fast_ok(const Requant& q,
+                                                const RequantScalars& s) {
+  auto ok = [](float v) { return floorf(v) == v && fabsf(v) <= 2097152.0f; };
+  return (q.q1 || q.res)
+         && (!q.q1 || (ok(s.lo1) && ok(s.hi1) && ok(s.sub1)))
+         && (!q.res || (ok(s.lo2) && ok(s.hi2) && ok(s.sub2)));
+}
+
+template <int CW, class Cols>
+__device__ __forceinline__ void store_codes_fast(float (&v)[CW],
+                                                 const Requant& q,
+                                                 const RequantScalars& s,
+                                                 const Cols& cols, size_t o,
+                                                 void* out) {
+  static_assert(CW % 4 == 0, "whole words");
+  float t[CW];
+  int k[CW];
+  if (q.m1) {
+    cols.get(t, 0);
+#pragma unroll
+    for (int j = 0; j < CW; ++j) v[j] = __fmul_rn(v[j], t[j]);
+  }
+  if (q.c1) {
+    cols.get(t, 1);
+#pragma unroll
+    for (int j = 0; j < CW; ++j) v[j] = __fadd_rn(v[j], t[j]);
+  }
+  if (q.q1) {
+    const int sub = __float_as_int(__fadd_rn(s.sub1, MAGIC)) - MAGIC_BITS;
+#pragma unroll
+    for (int j = 0; j < CW; ++j) {
+      const float r = __fadd_rd(fminf(fmaxf(v[j], s.lo1), s.hi1), MAGIC);
+      k[j] = __float_as_int(r) - MAGIC_BITS - sub;
+      v[j] = __fsub_rn(__fsub_rn(r, MAGIC), s.sub1);
+    }
+  }
+  if (q.res) {
+    cols.get(t, 2);
+#pragma unroll
+    for (int j = 0; j < CW; ++j) v[j] = __fmul_rn(v[j], t[j]);
+    if (q.res == 2) {
+      const uint32_t* r = reinterpret_cast<const uint32_t*>(
+          reinterpret_cast<const int8_t*>(q.r) + o);
+#pragma unroll
+      for (int w = 0; w < CW / 4; ++w) {
+        const uint32_t rw = __ldg(r + w);
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          v[4 * w + b] = __fadd_rn(
+              v[4 * w + b],
+              __fmul_rn(small_int_to_float((int8_t)(rw >> (8 * b))), s.mr));
+      }
+    } else if (q.res == 3) {
+      load_cols<CW, true>(t, reinterpret_cast<const float*>(q.r) + o);
+#pragma unroll
+      for (int j = 0; j < CW; ++j)
+        v[j] = __fadd_rn(v[j], __fmul_rn(t[j], s.mr));
+    }
+    cols.get(t, 3);
+    const int sub = __float_as_int(__fadd_rn(s.sub2, MAGIC)) - MAGIC_BITS;
+#pragma unroll
+    for (int j = 0; j < CW; ++j) {
+      const float r = __fadd_rd(
+          fminf(fmaxf(__fadd_rn(v[j], t[j]), s.lo2), s.hi2), MAGIC);
+      k[j] = __float_as_int(r) - MAGIC_BITS - sub;
+    }
+  }
+  uint32_t* dst = reinterpret_cast<uint32_t*>(reinterpret_cast<int8_t*>(out)
+                                              + o);
+#pragma unroll
+  for (int w = 0; w < CW / 4; ++w)
+    dst[w] = __byte_perm(__byte_perm(k[4 * w], k[4 * w + 1], 0x0040),
+                         __byte_perm(k[4 * w + 2], k[4 * w + 3], 0x0040),
+                         0x5410);
+}
+
+// store_chunk_cols with the columns nn.. of the block's requant terms in
+// shared memory (cols[t * cstride + nn], t = m1, c1, m2, c2;
+// load_requant_cols)
+template <int CW>
+__device__ __forceinline__ void store_chunk(float (&v)[CW], int mode,
+                                            const Requant& q,
+                                            const RequantScalars& s,
+                                            const float* cols, int cstride,
+                                            int nn, size_t o, void* out) {
+  store_chunk_cols<CW>(v, mode, q, s, SmemCols{cols, cstride, nn}, o, out);
 }
 
 // Pass 2: the BM x BN tile staged at st (row stride SP floats) to out

@@ -784,19 +784,28 @@ def test_reconstruct_node_step_on_card(card):
                      .mean()) <= 0.005
 
 
-@pytest.mark.parametrize("b,h,w,c,k,stride,s", [
-    (4, 56, 56, 144, 5, 1, 1), (4, 56, 56, 144, 5, 2, 2),
-    (2, 28, 28, 240, 5, 1, 2), (8, 7, 7, 1152, 5, 1, 1),
-    (2, 112, 112, 32, 3, 1, 1), (2, 15, 13, 96, 3, 2, 3),
-    (3, 9, 11, 20, 5, 2, 4), (2, 10, 10, 30, 3, 1, 1)])
-def test_dw_conv_int8_kernel_matches_plain(card, b, h, w, c, k, stride, s):
+@pytest.mark.parametrize("b,h,w,c,k,stride,s,skew", [
+    (4, 56, 56, 144, 5, 1, 1, False), (4, 56, 56, 144, 5, 2, 2, False),
+    (2, 28, 28, 240, 5, 1, 2, False), (8, 7, 7, 1152, 5, 1, 1, False),
+    (2, 112, 112, 32, 3, 1, 1, False), (2, 15, 13, 96, 3, 2, 3, False),
+    (3, 9, 11, 20, 5, 2, 4, False), (2, 10, 10, 30, 3, 1, 1, False),
+    (3, 13, 11, 36, 5, 1, 4, False), (2, 9, 10, 100, 3, 2, 3, False),
+    (4, 1, 1, 100, 3, 1, 2, False), (4, 2, 2, 36, 5, 2, 1, False),
+    (2, 2, 2, 100, 5, 1, 3, False), (2, 12, 17, 48, 3, 1, 2, True),
+    (2, 13, 11, 48, 5, 2, 1, True)])
+def test_dw_conv_int8_kernel_matches_plain(card, b, h, w, c, k, stride, s,
+                                           skew):
     """The integer depthwise kernel against its plain version: int32 sums
-    (S = 1), the scale-table sum, and a unit-site and two block requants,
-    bit-exact, one launch each, with codes of a 4-bit feed (offset 0) and
-    of a biased 8-bit one (offset 128); K 3 and 5, strides 1 and 2, odd
-    and short maps, S up to 4 (3 padded to 4), C % 4 != 0 (byte copies)
-    and C % 32 != 0 (a partial channel tile)."""
+    (S = 1), the scale-table sum, a unit-site and two block requants and
+    one with grid bounds that are not integers, bit-exact, one launch
+    each, with codes of a 4-bit feed (offset 0) and of a biased 8-bit one
+    (offset 128); K 3 and 5, strides 1 and 2, odd
+    and short maps (planes no tile divides, 1x1 and 2x2), S up to 4 (3
+    padded to 4), C % 4 != 0 (byte copies), C % 16 != 0 (4-byte copies:
+    36, 100), C % 32 != 0 (a partial channel slab) and a codes view one
+    byte off (byte copies)."""
     from shiftedscalequantization_tpu_torch.ops.cuda import dw_conv as TDC
+    from shiftedscalequantization_tpu_torch.ops.cuda.requant import Requant
     g = torch.Generator(device=card).manual_seed(11)
     wm = torch.randint(-2, 3, (s, c, k * k), generator=g, device=card,
                        dtype=torch.int8)
@@ -806,8 +815,9 @@ def test_dw_conv_int8_kernel_matches_plain(card, b, h, w, c, k, stride, s):
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     for off_n in (0, 128):
         span = 128 if off_n else 8
-        x = torch.randint(-span, span, (b, h, w, c), generator=g,
-                          device=card, dtype=torch.int8)
+        buf = torch.randint(-span, span, (b * h * w * c + int(skew),),
+                            generator=g, device=card, dtype=torch.int8)
+        x = buf[int(skew):].view(b, h, w, c)
         off = off_n * wm.sum(dim=2, dtype=torch.int32) if off_n else None
         modes = [dict(group_scales=table, act_delta=delta)]
         if s == 1:
@@ -815,6 +825,13 @@ def test_dw_conv_int8_kernel_matches_plain(card, b, h, w, c, k, stride, s):
         for rq in _requants(g, card, c, (b, ho, wo, c)).values():
             modes.append(dict(group_scales=table, act_delta=delta,
                               requant=rq))
+        # grid bounds that are not integers take the general requant path
+        modes.append(dict(group_scales=table, act_delta=delta,
+                          requant=Requant(
+                              m1=torch.full((c,), 1.3, device=card),
+                              c1=torch.full((c,), 7.25, device=card),
+                              q1=tuple(torch.tensor(v, device=card)
+                                       for v in (0.5, 14.5, 0.25)))))
         for kw in modes:
             before = TDC.dw_conv_int8.launches
             got = TDC.dw_conv_int8(x, wm, *geom, pad_value=-off_n,

@@ -167,7 +167,8 @@ non-zero exit and no result line:
    24-25 (19 int8_conv launches, no requant left);
 27. regnet cli: the port's CLI on the trained RegNetX-600M (CIFAR
    variant, synth10), REGNET_CLI_COMMON with --mode brecq and then
-   --mode fused, each in its own process under REGNET_CLI_TIMEOUT_S;
+   --mode fused (at 100 weight steps: REGNET_CLI_MODES), each in its own
+   process under REGNET_CLI_TIMEOUT_S;
    FP top-1, top-1 after each target, final top-1 and the deploy top-1
    of the final state on the 2048 test images, beside
    ACCURACY_regnet_r4.md; gates: FP top-1 equals the port CLI's on the
@@ -244,7 +245,42 @@ non-zero exit and no result line:
    SSQ_PACKED=1 on the 2048 test images; gates: FP top-1 equals the port
    CLI's on the CPU (MNASNET_CPU_FP_TOP1), all 52 targets done, final
    (sim) top-1 at least FP - REGNET_FINAL_DROP, deploy within 0.5 points
-   of it; the sum sites beside the JAX record's.
+   of it; the sum sites beside the JAX record's;
+34. resnet50 setup + serving: ImageNet ResNet-50 W2A4 at full width from
+   a torchvision-layout checkpoint drawn with numpy
+   (torchvision_checkpoint, saved as {'state_dict': {'module.<key>':
+   ...}}) and read back through utils/torch_import, MSE scales,
+   calibration on 16 images, uniform and baked (SHIFT_TARGETS); each
+   plan under the JAX package's defaults and under SSQ_STEM_KERNEL=1
+   SSQ_PACKED=1 must hold the JAX plan's kinds (R50_KINDS); each served
+   at batch 256 with the counters reset just before the forward
+   (plan_launches; requants left UNFUSED: the float_1p stem's under the
+   defaults), its ms/batch beside the port's bf16 float forward, deploy
+   vs sim rel-MSE <= 1e-2, no NaN, card vs CPU deploy on 8 grid images
+   rel-MSE <= 1e-8, same top-1; the sim forward (counters reset
+   just before it) launches fake_quant once at each of the 49 act
+   sites and once for each UniformWQ weight;
+35. resnet50 kernels: fake_quant at the 49 act sites' shapes (12
+   shapes, up to 3 211 264 x 64 and 802 816 x 256), as in 15; int8_conv
+   at every dense shape of both default plans (22 shapes; S = 2 baked,
+   S = 1 uniform; 1x1 at M = 802 816 and up to C = N = 2048, the
+   stride-2 downsamples) and the packed kernel at every shape of the
+   uniform stem+packed plan (34 units, K 64-2048), as in 12 and 4
+   (torch.equal in sums mode and every requant variant,
+   timed beside the bound, cuDNN and torch._int_mm); the stem's shape is
+   phase 3's;
+36. native loader: whether Pillow and libjpeg are installed; the native
+   loader built from native/dataloader.cc into build/native/, its
+   sequential batches equal ArrayLoader's bit for bit, and the loader
+   the data builders take; left out, on a line of its own, only where
+   libjpeg is missing;
+37. resnet50 cli: an ImageNet npz root synthesized in a temporary
+   directory (uint8 train.npz that takes the resize and crop, float32
+   val shards) and the CLI in its own process under R50_CLI_TIMEOUT_S
+   (R50_CLI_ARGS, --pretrained the phase-34 checkpoint); gates: exit 0,
+   the loader kinds printed, 17 targets, the imported FP logits on 4 val
+   images card vs CPU within R50_FP_RTOL, the fused checkpoint served
+   with deploy vs sim rel-MSE <= 1e-2, no NaN.
 
 It imports nothing of JAX. Standard output ends with a JSON line of
 details, a JSON line of the kernels, the nvidia-smi line, the total
@@ -276,7 +312,12 @@ MNV2_KINDS = {"dw_int8": 16, "packed": 34, "bf16_codes": 1, "float_1p": 1,
 UNFUSED = {"resnet18": 0, "resnet18_shifted": 0, "resnet18_reconstructed": 0,
            "mobilenetv2": 1, "regnetx_600m_uniform": 1,
            "regnetx_600m_baked": 1, "resnet18_w4a8": 0, "mnasnet_plain": 11,
-           "mnasnet_harmonized": 1}
+           "mnasnet_harmonized": 1,
+           # ResNet-50: the float_1p stem's requant under the defaults, as
+           # MobileNetV2's; none with the stem kernel
+           "resnet50_uniform_default": 1, "resnet50_baked_default": 1,
+           "resnet50_uniform_stem_packed": 0,
+           "resnet50_baked_stem_packed": 0}
 SHIFT_TARGETS = (0.5, 1.0)       # the method path's candidate set
 RECON_IMAGES = 256               # calibration set of the reconstruction
 RECON_ITERS = 200                # optimizer steps per target (CLI: 20000)
@@ -350,7 +391,12 @@ REGNET_CLI_COMMON = ["--arch", "regnetx_600m", "--dataset", "synth10",
                      "--pretrained", "trained_regnetx_600m_synth10.npz",
                      "--n_bits_w", "2", "--n_bits_a", "4", "--iters_w", "300",
                      "--iters_a", "150", "--num_samples", "256"]
-REGNET_CLI_MODES = ("brecq", "fused")
+# each mode's flags after REGNET_CLI_COMMON (a later flag wins): the fused
+# run, gated on FP top-1 and deploy against sim only (it ends near 14
+# top-1 at 300 steps), takes 100 weight steps: at 300 the whole script
+# took 991.53-1097.88 s on the H100's machine, whose host runs the CLI
+# phases 20-45% slower from one call to the next
+REGNET_CLI_MODES = {"brecq": [], "fused": ["--iters_w", "100"]}
 REGNET_CLI_TIMEOUT_S = 420
 # FP top-1 on the CPU, same flags (--platform cpu): the port's CLI, 2048
 # of its 2048 synth10 test images, is the gate; the JAX CLI's, 2044 of
@@ -368,6 +414,24 @@ _T0 = time.perf_counter()
 def phase(name, t0):
     now = time.perf_counter()
     print(f"[{name}] {now - t0:.2f} s (at {now - _T0:.2f} s)", flush=True)
+
+
+@contextlib.contextmanager
+def time_limit(name, seconds):
+    """Fail the phases run inside if they take longer than ``seconds``
+    (SIGALRM, seen between Python bytecodes)."""
+    import signal
+
+    def expire(signum, frame):
+        raise TimeoutError(f"{name}: over its {seconds} s limit")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
 
 
 def time_cuda(fn, iters=20, warmup=3):
@@ -810,22 +874,24 @@ def host_images(torch, n, seed):
 
 
 def serving_setup(torch, gen, arch="resnet18", shifted=False, bits=(2, 4),
-                  host=False):
-    """An ImageNet model (ResNet-18, MobileNetV2 or RegNetX-600M) at full
-    width, W2A4 or ``bits``, seeded weights, all on the card: BN fold + MSE
-    weight scales, act calibration on 16 images, and with ``shifted`` the
-    method's fused shifted-scale quantizers (targets SHIFT_TARGETS)
-    hardened as the reconstruction engine hardens them; then deploy
-    conversion. ``host`` draws the weights and the calibration images
-    with numpy (host_params, host_images seed 1), else with the card's
-    generators. Returns (graph, cfg, params, qstate, dparams, steps)."""
+                  host=False, raw=None):
+    """An ImageNet model (ResNet-18 or -50, MobileNetV2, RegNetX-600M or
+    MNASNet) at full width, W2A4 or ``bits``, seeded weights (or ``raw``
+    params), all on the card: BN fold + MSE weight scales, act calibration
+    on 16 images, and with ``shifted`` the method's fused shifted-scale
+    quantizers (targets SHIFT_TARGETS) hardened as the reconstruction
+    engine hardens them; then deploy conversion. ``host`` draws the
+    weights and the calibration images with numpy (host_params,
+    host_images seed 1), else with the card's generators. Returns (graph,
+    cfg, params, qstate, dparams, steps)."""
     from shiftedscalequantization_tpu_torch import deploy
     from shiftedscalequantization_tpu_torch import quantize as Q
     from shiftedscalequantization_tpu_torch.models import zoo
     from shiftedscalequantization_tpu_torch.recon import engine
     graph, _ = zoo.build(arch, dataset="imagenet")
-    raw = host_params(torch, graph) if host \
-        else zoo.init_params(graph, seed=0, device=DEVICE)
+    if raw is None:
+        raw = host_params(torch, graph) if host \
+            else zoo.init_params(graph, seed=0, device=DEVICE)
     cfg = Q.QuantConfig(n_bits_w=bits[0], n_bits_a=bits[1])
     params, qstate = Q.prepare_model(graph, raw, cfg, device=DEVICE)
     calib = host_images(torch, 16, 1) if host \
@@ -833,15 +899,21 @@ def serving_setup(torch, gen, arch="resnet18", shifted=False, bits=(2, 4),
     qstate = Q.calibrate_acts(graph, params, qstate, calib, cfg,
                               device=DEVICE)
     if shifted:
-        names = Q.unit_order(graph)
-        qstate, _ = engine._init_quantizers(
-            params, qstate, names,
-            engine.ReconSettings(mode="fused", shift_targets=SHIFT_TARGETS))
-        qstate = engine._harden(qstate, names, "fused")
+        qstate = bake(engine, Q, graph, params, qstate)
     dparams = deploy.build_deploy_params(graph, params, qstate,
                                          device=DEVICE)
     steps = deploy.act_steps_from_qstate(graph, qstate)
     return graph, cfg, params, qstate, dparams, steps
+
+
+def bake(engine, Q, graph, params, qstate):
+    """The method's fused shifted-scale quantizers (targets SHIFT_TARGETS)
+    on every unit, hardened as the reconstruction engine hardens them."""
+    names = Q.unit_order(graph)
+    qstate, _ = engine._init_quantizers(
+        params, qstate, names,
+        engine.ReconSettings(mode="fused", shift_targets=SHIFT_TARGETS))
+    return engine._harden(qstate, names, "fused")
 
 
 def packed_shapes(graph, dparams, plan):
@@ -2206,8 +2278,10 @@ def serve_state(torch, deploy, Q, forward, Flags, name, setup, x, launches,
         graph, dparams, steps, x, plan=plan, device=DEVICE), iters=5,
         warmup=1)
     flags = Q.act_flags(graph, cfg, base=Flags().all_weights(graph))
+    reset_counts()
     sim = forward(graph, params, qstate, x, flags, device=DEVICE)
     torch.cuda.synchronize()
+    sim_launches = {k: v for k, v in counts().items() if v}
     finite = bool(torch.isfinite(sim).all())
     rel = logit_rel_mse(torch, logits, sim)
     agree = float((sim.argmax(-1) == logits.argmax(-1)).double().mean())
@@ -2235,6 +2309,7 @@ def serve_state(torch, deploy, Q, forward, Flags, name, setup, x, launches,
         raise AssertionError(f"{name}: card vs CPU deploy rel-MSE {c_rel}, "
                              f"same top-1 {same}")
     return dict(plan=plan, launches={k: v for k, v in got.items() if v},
+                sim_launches=sim_launches,
                 pair_stats=pairs, unfused=unfused, deploy_ms=dep_ms,
                 rel_mse=rel,
                 top1_agreement=agree, card_cpu_rel_mse=c_rel,
@@ -2397,8 +2472,8 @@ def regnet_cli_phases(torch):
     runs = {}
     common = [os.path.join(root, a) if a.endswith(".npz") else a
               for a in REGNET_CLI_COMMON]
-    for mode in REGNET_CLI_MODES:
-        argv = common + [
+    for mode, extra in REGNET_CLI_MODES.items():
+        argv = common + extra + [
             "--mode", mode, "--checkpoint_dir", os.path.join(tmp.name, mode),
             "--log_path", os.path.join(tmp.name, f"{mode}.log")]
         print(f"  regnet cli {mode}: python -m "
@@ -3030,8 +3105,10 @@ DW_ODD_SHAPES = [(3, 13, 11, 36, 5, 1, 4, False),
                  (2, 13, 11, 48, 5, 2, 4, True)]
 # phase 33: the port's CLI on the trained MNASNet (CIFAR variant) on
 # synth10, brecq W2A4, with and without --harmonize_residual, each in a
-# process of its own under MNASNET_CLI_TIMEOUT_S (each about 115 s on the
-# card, so the two stay near the phase's 240 s); 52 per-unit targets at
+# process of its own under MNASNET_CLI_TIMEOUT_S (each 112-163 s on the
+# card: host-bound, and the card machine's host varies that much between
+# calls);
+# 52 per-unit targets at
 # 400 weight steps, no act-delta phase and no per-target validation (on
 # the card at 100 / 50 steps the plain run ended at 13.1 top-1; at
 # 200 / 100 at 72.0, 300 / 0 at 95.1, 600 / 0 at 99.8).
@@ -3045,7 +3122,7 @@ MNASNET_CLI_COMMON = ["--arch", "mnasnet", "--dataset", "synth10",
                       "4", "--num_samples", "256", "--batch_size", "64",
                       "--iters_w", "400", "--iters_a", "0",
                       "--skip_test", "true"]
-MNASNET_CLI_TIMEOUT_S = 130
+MNASNET_CLI_TIMEOUT_S = 240
 # FP top-1 of the port's CLI on the CPU (--platform cpu, the same data
 # flags; its "accuracy of FP model" line): 2048 synth10 test images
 MNASNET_CPU_FP_TOP1 = 100.0
@@ -3443,6 +3520,388 @@ def mnasnet_cli_phases(torch):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# ResNet-50 from a torchvision checkpoint, the native loader, the import
+# and data path through the CLI (phases 34-37)
+# ---------------------------------------------------------------------------
+
+R50_STATES = ("uniform", "baked")
+R50_ENVS = {"default": {},
+            "stem+packed": dict(SSQ_STEM_KERNEL="1", SSQ_PACKED="1")}
+# the JAX package's plan kinds for ImageNet ResNet-50 W2A4 at 224x224
+# (tests/test_torch_port_resnet_bottleneck.py pins them against its plan)
+R50_KINDS = {
+    ("uniform", "default"): {"bf16_codes": 10, "float": 1, "float_1p": 1,
+                             "int8": 42},
+    ("uniform", "stem+packed"): {"bf16_codes": 5, "float": 1, "int8": 13,
+                                 "packed": 34, "stem_fused": 1},
+    ("baked", "default"): {"bf16_codes": 10, "float": 1, "float_1p": 1,
+                           "int8": 42},
+    ("baked", "stem+packed"): {"bf16_codes": 10, "float": 1, "int8": 42,
+                               "stem_fused": 1},
+}
+R50_CLI_ARGS = ["--arch", "resnet50", "--dataset", "imagenet", "--mode",
+                "fused", "--iters_w", "20", "--iters_a", "0",
+                "--num_samples", "64"]
+R50_CLI_TIMEOUT_S = 150         # the CLI's process
+R50_LIMIT_S = 300               # phases 34-35
+R50_ACT_SITES = 49              # act sites of the sim forward (W2A4)
+NATIVE_LIMIT_S = 60             # phase 36
+R50_CLI_LIMIT_S = 300           # phase 37: the CLI's process, then serving
+R50_CLI_TRAIN = (64, 288, 360)   # uint8 train images: the val transform
+#                                  shrinks them to 256x320 and crops 224
+R50_CLI_VAL = (2, 16)            # float32 224x224 val shards x images
+R50_FP_RTOL = 1e-5               # imported FP logits, card vs CPU:
+#                                  max |diff| / max |CPU logit|
+
+
+def r50_key(state, env):
+    return f"resnet50_{state}_{env.replace('+', '_')}"
+
+
+def torchvision_state_dict(torch, graph, key_map, seed=0):
+    """A torchvision-layout state dict for ``graph`` drawn with numpy:
+    He-normal conv and linear weights, zero linear bias, BN affine and
+    running statistics near identity, the num_batches_tracked counters
+    the importers ignore."""
+    import numpy as np
+    from shiftedscalequantization_tpu_torch.graph import iter_units
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for u in iter_units(graph):
+        conv, bn = key_map[u.name]
+        shape = (u.out_ch, u.in_ch // u.groups, *u.kernel) \
+            if u.kind == "conv" else (u.out_ch, u.in_ch)
+        fan_in = int(np.prod(shape[1:]))
+        sd[f"{conv}.weight"] = torch.as_tensor(
+            rng.standard_normal(shape, dtype=np.float32)
+            * np.float32(np.sqrt(2.0 / fan_in)))
+        c = u.out_ch
+        if bn is None:
+            sd[f"{conv}.bias"] = torch.zeros(c)
+            continue
+        for name, v in (("weight", rng.uniform(0.8, 1.2, c)),
+                        ("bias", rng.normal(0.0, 0.05, c)),
+                        ("running_mean", rng.normal(0.0, 0.05, c)),
+                        ("running_var", rng.uniform(0.8, 1.2, c))):
+            sd[f"{bn}.{name}"] = torch.as_tensor(v.astype(np.float32))
+        sd[f"{bn}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def torchvision_checkpoint(torch, graph, key_map, path, seed=0):
+    """torchvision_state_dict saved as a DataParallel training checkpoint,
+    {'state_dict': {'module.<key>': tensor}}, at ``path``."""
+    sd = torchvision_state_dict(torch, graph, key_map, seed)
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               path)
+
+
+def resnet50_phases(torch, gen, ckpt):
+    """Phases 34-35: ImageNet ResNet-50 W2A4 at full width from the
+    torchvision checkpoint ``ckpt`` read through utils/torch_import, MSE
+    scales, calibration on 16 images, uniform and baked (the method's
+    fused quantizers, SHIFT_TARGETS, hardened); each plan under the JAX
+    package's defaults and under SSQ_STEM_KERNEL=1 SSQ_PACKED=1 must hold
+    the JAX plan's kinds (R50_KINDS); each served at batch 256 with the
+    counters reset just before the forward (plan_launches, requants left
+    UNFUSED), deploy vs sim, card vs CPU on 8 grid images, ms/batch
+    beside the port's bf16 float forward, the sim forward's fake_quant
+    launches gated (one a site, one a UniformWQ weight); then fake_quant
+    at the act sites' shapes, int8_conv at every dense shape of both
+    default plans and the packed kernel at every shape of the uniform
+    stem+packed plan against their plain versions."""
+    from shiftedscalequantization_tpu_torch import deploy
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.graph import Flags, forward
+    from shiftedscalequantization_tpu_torch.models import zoo
+    from shiftedscalequantization_tpu_torch.graph import iter_units
+    from shiftedscalequantization_tpu_torch.ops.cuda import fake_quant, \
+        int_matmul, packed, requant
+    from shiftedscalequantization_tpu_torch.recon import engine
+    from shiftedscalequantization_tpu_torch.utils import torch_import
+    t0 = time.perf_counter()
+    serving_env()
+    graph, km = zoo.build("resnet50", dataset="imagenet")
+    sd = torch_import.load_state_dict(ckpt)
+    raw = torch_import.params_from_state_dict(graph, km(graph), sd,
+                                              device=DEVICE)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    uniform = serving_setup(torch, gen, "resnet50", host=True, raw=raw)
+    g, cfg, params, qstate, _, _ = uniform
+    qs_b = bake(engine, Q, g, params, qstate)
+    setups = {"uniform": uniform,
+              "baked": (g, cfg, params, qs_b,
+                        deploy.build_deploy_params(g, params, qs_b,
+                                                   device=DEVICE),
+                        deploy.act_steps_from_qstate(g, qs_b))}
+    plans = {}
+    for state in R50_STATES:
+        for env, switches in R50_ENVS.items():
+            serving_env(**switches)
+            plan = deploy.make_deploy_plan(graph, setups[state][4],
+                                           setups[state][5],
+                                           input_hw=(HW, HW))
+            got = plan_counts(plan)
+            print(f"  resnet50 {state} {env}: plan kinds {got} (JAX "
+                  f"{R50_KINDS[(state, env)]})", flush=True)
+            if got != R50_KINDS[(state, env)]:
+                raise AssertionError(f"resnet50 {state} {env} plan kinds "
+                                     f"{got}")
+            plans[(state, env)] = plan
+    baked = sum(d.w_groups is not None for d in setups["baked"][4].values())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"  resnet50: {len(sd)} checkpoint tensors imported in "
+          f"{import_s:.2f} s; setup (import, BN fold, MSE scales, "
+          f"calibration, baking, two deploy conversions) {setup_s:.2f} s; "
+          f"{baked} baked units", flush=True)
+    phase("resnet50 setup", t0)
+
+    t0 = time.perf_counter()
+    x = host_images(torch, BATCH, 3)
+    served = {}
+    for state in R50_STATES:
+        _, _, params_s, qs_s, _, _ = setups[state]
+        for env, switches in R50_ENVS.items():
+            serving_env(**switches)
+            key = r50_key(state, env)
+            res = serve_state(torch, deploy, Q, forward, Flags,
+                              f"resnet50 {state} {env}", setups[state], x,
+                              plan_launches(graph, plans[(state, env)]),
+                              key)
+            res["plan"] = plan_counts(res["plan"])
+            want = dict(fake_quant_act=R50_ACT_SITES,
+                        fake_quant_weight=sum(
+                            type(qs_s[u.name].wq).__name__ == "UniformWQ"
+                            for u in iter_units(graph)))
+            got = {k: res["sim_launches"].get(k, 0) for k in want}
+            print(f"  resnet50 {state} {env}: fake_quant launches in one "
+                  f"sim forward {got} (want {want})", flush=True)
+            if got != want:
+                raise AssertionError(f"resnet50 {state} {env} sim "
+                                     f"fake_quant launches {got}")
+            served[key] = res
+        params_bf16 = {u: {k: v.to(torch.bfloat16) for k, v in p.items()}
+                       for u, p in params_s.items()}
+        xb = x.to(torch.bfloat16)
+        bf16_ms = time_cuda(lambda: forward(
+            graph, params_bf16, qs_s, xb, Flags(), device=DEVICE),
+            iters=5, warmup=1)
+        for env in R50_ENVS:
+            served[r50_key(state, env)]["bf16_ms"] = bf16_ms
+        print(f"  resnet50 {state}: deploy " + ", ".join(
+            f"{env} {served[r50_key(state, env)]['deploy_ms']:.3f}"
+            for env in R50_ENVS) + f" ms/batch; the port's bf16 float "
+            f"forward {bf16_ms:.3f} ms/batch", flush=True)
+    serving_env()
+    phase("resnet50 serving + parity", t0)
+
+    t0 = time.perf_counter()
+    fq_shapes = act_site_shapes(g, params, qstate, cfg, x[:1], BATCH)
+    if sum(fq_shapes.values()) != R50_ACT_SITES:
+        raise AssertionError(f"resnet50 act site shapes {fq_shapes}")
+    fq_rows = check_fake_quant(torch, gen, fake_quant, fq_shapes)
+    conv_rows = check_int8_conv(
+        torch, gen, int_matmul, requant, deploy,
+        int8_conv_shapes(graph, plans[("baked", "default")]),
+        int8_conv_shapes(graph, plans[("uniform", "default")]))
+    if sum(sum(r["roles"].values()) for r in conv_rows) != 52 \
+            or sum(sum(r["uniform_roles"].values()) for r in conv_rows) != 52:
+        raise AssertionError(f"resnet50 int8_conv shapes {conv_rows}")
+    pk_rows = check_packed(
+        torch, gen, packed, requant, deploy,
+        packed_shapes(graph, setups["uniform"][4],
+                      plans[("uniform", "stem+packed")]), iters=5)
+    if sum(sum(r["roles"].values()) for r in pk_rows) != 34:
+        raise AssertionError(f"resnet50 packed shapes {pk_rows}")
+    print("  resnet50 stem: the shape of phase 3's check (batch 256, "
+          "224x224, 64 channels), bit-exact there", flush=True)
+    phase("resnet50 kernels", t0)
+    return dict(import_s=import_s, setup_s=setup_s, baked_units=baked,
+                served=served, fq_rows=fq_rows, conv_rows=conv_rows,
+                packed_rows=pk_rows)
+
+
+def native_loader_phase():
+    """Phase 36: whether the card's machine has Pillow and libjpeg, the
+    native loader built there into build/native/ from
+    native/dataloader.cc; sequential NativeLoader batches against
+    ArrayLoader's, bit for bit; the loader _make_loader takes. Left out,
+    on a line of its own, only where libjpeg is missing."""
+    import glob
+    import shutil
+    import numpy as np
+    from shiftedscalequantization_tpu_torch.data import datasets, \
+        native_loader
+    t0 = time.perf_counter()
+    try:
+        import PIL
+        pillow = PIL.__version__
+    except ImportError:
+        pillow = None
+    headers = [p for pat in ("/usr/include/jpeglib.h",
+                             "/usr/include/*/jpeglib.h",
+                             "/usr/local/include/jpeglib.h")
+               for p in glob.glob(pat)]
+    ldc = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                         text=True).stdout if shutil.which("ldconfig") else ""
+    libs = sorted({ln.split()[0] for ln in ldc.splitlines()
+                   if "libjpeg" in ln})
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    probe = dict(pillow=pillow, jpeglib_h=headers, libjpeg=libs, cxx=cxx)
+    print(f"  probe: Pillow {pillow or 'absent'}; jpeglib.h "
+          f"{headers or 'absent'}; libjpeg {libs or 'absent'}; compiler "
+          f"{cxx or 'absent'}", flush=True)
+    t = time.perf_counter()
+    built = native_loader.native_available()
+    build_s = time.perf_counter() - t
+    if not built:
+        err = native_loader.build_error()
+        if not headers:
+            print(f"native loader phase left out: libjpeg's header is "
+                  f"missing on this machine, so native/dataloader.cc does "
+                  f"not build ({err.splitlines()[-1][:200]})", flush=True)
+            phase("native loader", t0)
+            return dict(probe=probe, built=False, error=err)
+        raise AssertionError(f"native loader does not build: {err}")
+    lib = os.path.abspath(native_loader._lib._name)
+    if os.path.dirname(lib) != str(native_loader.BUILD_DIR):
+        raise AssertionError(f"native library loaded from {lib}")
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((1000, 32, 32, 3), dtype=np.float32)
+    y = rng.integers(0, 1000, 1000).astype(np.int32)
+    nat = list(native_loader.NativeLoader(x, y, 64))
+    arr = list(datasets.ArrayLoader(x, y, 64))
+    same = len(nat) == len(arr) and all(
+        np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        for a, b in zip(nat, arr))
+    chosen = type(datasets._make_loader(x, y, 64, True, 0, (0, 1))).__name__
+    print(f"  native loader built in {build_s:.2f} s at {lib}; {len(nat)} "
+          f"sequential batches equal ArrayLoader's bit for bit: {same}; "
+          f"_make_loader takes {chosen}", flush=True)
+    if not same or chosen != "NativeLoader":
+        raise AssertionError(f"native loader: batches equal {same}, "
+                             f"_make_loader took {chosen}")
+    phase("native loader", t0)
+    return dict(probe=probe, built=True, build_s=build_s, batches=len(nat),
+                loader=chosen)
+
+
+def resnet50_cli_phase(torch, ckpt, tmp):
+    """Phase 37: the import and data path end to end. An ImageNet npz root
+    synthesized in ``tmp`` (uint8 train.npz that takes the val transform's
+    resize and crop, float32 val shards), and the port's CLI on it in its
+    own process under R50_CLI_TIMEOUT_S: R50_CLI_ARGS (--arch resnet50
+    --mode fused, 20 steps a target, 64 rows), --pretrained ``ckpt``. Gates:
+    exit 0, the loader kinds printed, 17 targets reconstructed, the
+    imported FP logits on 4 val images on the card equal the CPU's within
+    R50_FP_RTOL, and the final checkpoint served with deploy vs sim
+    rel-MSE <= RELMSE_GATE, no NaN."""
+    import numpy as np
+    from shiftedscalequantization_tpu_torch import cli, deploy
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.data import imagenet_io
+    from shiftedscalequantization_tpu_torch.graph import Flags, forward
+    from shiftedscalequantization_tpu_torch.utils import checkpoint as ck
+    from shiftedscalequantization_tpu_torch.utils.config import load_args
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "imagenet")
+    os.makedirs(os.path.join(root, "val"))
+    rng = np.random.default_rng(5)
+    n, h, w = R50_CLI_TRAIN
+    np.savez(os.path.join(root, "train.npz"),
+             images=rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8),
+             labels=rng.integers(0, 1000, n))
+    shards, per = R50_CLI_VAL
+    for i in range(shards):
+        np.savez(os.path.join(root, "val", f"shard{i}.npz"),
+                 images=rng.standard_normal((per, HW, HW, 3),
+                                            dtype=np.float32),
+                 labels=rng.integers(0, 1000, per))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    argv = R50_CLI_ARGS + [
+        "--data_path", root, "--pretrained", ckpt, "--checkpoint_dir",
+        os.path.join(tmp, "r50_ck"), "--log_path",
+        os.path.join(tmp, "r50.log")]
+    env = dict(os.environ, PYTHONPATH=repo)
+    for k in ("SSQ_STEM_KERNEL", "SSQ_PACKED", "SSQ_STEM_1PASS",
+              "SSQ_DW_KERNEL"):
+        env.pop(k, None)
+    print(f"  resnet50 cli: python -m shiftedscalequantization_tpu_torch.cli "
+          f"{' '.join(argv)}", flush=True)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "shiftedscalequantization_tpu_torch.cli",
+         *argv], cwd=repo, env=env, capture_output=True, text=True,
+        timeout=R50_CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    out = proc.stdout
+    for line in out.splitlines():
+        if line.startswith(("data loaders:", "accuracy of FP", "Final W")):
+            print("  | " + line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"resnet50 cli: exit {proc.returncode}\n"
+                             f"{out[-4000:]}\n{proc.stderr[-4000:]}")
+    loaders = [ln for ln in out.splitlines()
+               if ln.startswith("data loaders: train ")]
+    recon = out.count("Reconstructed ")
+    final = next((_cli_dict(ln)["top1"] for ln in out.splitlines()
+                  if ln.startswith("Final W")), None)
+    if len(loaders) != 1 or recon != 17 or final is None:
+        raise AssertionError(f"resnet50 cli: loader lines {loaders}, "
+                             f"{recon} targets reconstructed, final {final}")
+    args = load_args(argv)
+    xv, _ = imagenet_io.load_array_split(root, "val")
+    fp = {}
+    for dev in (DEVICE, "cpu"):
+        graph, raw, _ = cli.build_everything(args, device=dev)
+        params, qs0 = Q.prepare_model(
+            graph, raw, Q.QuantConfig(w_scale_method="max"), device=dev)
+        fp[dev] = forward(graph, params, qs0,
+                          torch.as_tensor(xv[:4], device=dev), Flags(),
+                          device=dev).cpu().double()
+    fp_err = float((fp[DEVICE] - fp["cpu"]).abs().max()
+                   / fp["cpu"].abs().max())
+    graph, raw, cfg = cli.build_everything(args, device=DEVICE)
+    params, _ = Q.prepare_model(graph, raw, cfg, device=DEVICE)
+    qs, done = ck.load_qstate(os.path.join(tmp, "r50_ck", "QNN_W2_A4"),
+                              device=DEVICE)
+    dp = deploy.build_deploy_params(graph, params, qs, device=DEVICE)
+    steps = deploy.act_steps_from_qstate(graph, qs)
+    serving_env()
+    plan = deploy.make_deploy_plan(graph, dp, steps, input_hw=(HW, HW))
+    x = torch.as_tensor(xv, device=DEVICE)
+    reset_counts()
+    logits = deploy.deploy_forward(graph, dp, steps, x, plan=plan,
+                                   device=DEVICE)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in counts().items() if v}
+    sim = forward(graph, params, qs, x, Q.act_flags(
+        graph, cfg, base=Flags().all_weights(graph)), device=DEVICE)
+    finite = bool(torch.isfinite(logits).all() and torch.isfinite(sim).all())
+    rel = logit_rel_mse(torch, logits, sim)
+    print(f"  resnet50 cli: {wall:.2f} s (limit {R50_CLI_TIMEOUT_S}); "
+          f"{recon} targets; {loaders[0]}; imported FP logits on 4 val "
+          f"images, card vs CPU max |diff| / max |logit| {fp_err:.3e} (gate "
+          f"{R50_FP_RTOL:g}); the fused checkpoint ({len(done)} targets "
+          f"done) served on {x.shape[0]} val images: plan "
+          f"{plan_counts(plan)}, launches {launches}, deploy vs sim logit "
+          f"rel-MSE {rel:.4e} (gate {RELMSE_GATE:g}), finite {finite}",
+          flush=True)
+    if not fp_err <= R50_FP_RTOL:
+        raise AssertionError(f"resnet50 cli: imported FP logits card vs "
+                             f"CPU {fp_err}")
+    if len(done) != 17 or not (finite and rel <= RELMSE_GATE):
+        raise AssertionError(f"resnet50 cli: {len(done)} targets done, "
+                             f"deploy vs sim {rel}, finite {finite}")
+    phase("resnet50 cli", t0)
+    return dict(wall_s=wall, loaders=loaders[0], targets=recon,
+                final_top1=final, fp_card_cpu=fp_err, deploy_sim_rel_mse=rel,
+                deploy_launches=launches, plan_kinds=plan_counts(plan))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3772,6 +4231,33 @@ def main():
                     for s, r in rg["served"].items()})
     unfused["resnet18_w4a8"] = pair["unfused"]
 
+    # ---- ResNet-50 from a torchvision checkpoint; the native loader; the
+    # import and data path through the CLI --------------------------------
+    import tempfile
+    from shiftedscalequantization_tpu_torch.models import zoo
+    r50_tmp = tempfile.TemporaryDirectory()
+    r50_ckpt = os.path.join(r50_tmp.name, "resnet50.pth.tar")
+    g50, km50 = zoo.build("resnet50", dataset="imagenet")
+    torchvision_checkpoint(torch, g50, km50(g50), r50_ckpt)
+    with time_limit("resnet50 phases", R50_LIMIT_S):
+        r50 = resnet50_phases(torch, gen, r50_ckpt)
+    with time_limit("native loader", NATIVE_LIMIT_S):
+        native = native_loader_phase()
+    with time_limit("resnet50 cli", R50_CLI_LIMIT_S):
+        r50_cli = resnet50_cli_phase(torch, r50_ckpt, r50_tmp.name)
+    r50_tmp.cleanup()
+    r50_served = r50["served"]
+    unfused.update({k: r["unfused"] for k, r in r50_served.items()})
+
+    def r50_count(kernel):
+        return {k: r["launches"].get(kernel, 0)
+                for k, r in r50_served.items()}
+
+    r50_sim_fq = {k: r["sim_launches"].get("fake_quant_act", 0)
+                  + r["sim_launches"].get("fake_quant_weight", 0)
+                  for k, r in r50_served.items()}
+    r50_fq_act = [r for r in r50["fq_rows"] if r["name"].startswith("act ")]
+
     src = "shiftedscalequantization_tpu_torch/csrc/"
 
     def per_forward(rows, key):
@@ -3801,10 +4287,12 @@ def main():
          "source": src + "packed_qmm.cu",
          "replaces": "shiftedscalequantization_tpu/ops/pallas/packed.py:55",
          "launches": launches["packed_quant_matmul"]
-         + mlaunches["packed_quant_matmul"],
+         + mlaunches["packed_quant_matmul"]
+         + sum(r50_count("packed_quant_matmul").values()),
          "launches_by_path": {
              "resnet18": launches["packed_quant_matmul"],
-             "mobilenetv2": mlaunches["packed_quant_matmul"]},
+             "mobilenetv2": mlaunches["packed_quant_matmul"],
+             **r50_count("packed_quant_matmul")},
          "max_abs_err": max(r["err"] for r in pk_all),
          "ms": path_time(pk_all),
          "ms_by_path": {"resnet18": path_time(packed_rows),
@@ -3814,11 +4302,20 @@ def main():
          "bound_ms": path_time(pk_all, "bound_ms"),
          "bound_by": max(((r["bound_ms"][k], r["bound_by"][k])
                           for r in pk_all for k in r["roles"]))[1],
-         "library_ms": per_path(pk_all, "library_ms")},
+         "library_ms": per_path(pk_all, "library_ms"),
+         # ResNet-50's uniform stem+packed forward (34 units)
+         "resnet50": {
+             "ms": path_time(r50["packed_rows"]),
+             "bound_ms": path_time(r50["packed_rows"], "bound_ms"),
+             "plain_ms": per_path(r50["packed_rows"], "plain_ms"),
+             "library_ms": per_path(r50["packed_rows"], "library_ms")}},
         {"name": "stem_fused", "route": "cuda",
          "source": src + "stem_fused.cu",
          "replaces": "shiftedscalequantization_tpu/ops/pallas/stem.py:66",
-         "launches": launches["stem_fused"],
+         "launches": launches["stem_fused"]
+         + sum(r50_count("stem_fused").values()),
+         "launches_by_path": {"resnet18": launches["stem_fused"],
+                              **r50_count("stem_fused")},
          "max_abs_err": max(r["err"] for r in stem_rows),
          "ms": stem_rows[0]["ms"], "ms_eager": stem_rows[0]["eager_ms"],
          "plain_ms": stem_rows[0]["plain_ms"],
@@ -3877,13 +4374,13 @@ def main():
                          key=lambda r: r["bound_ms"])["bound_by"],
          "library_ms": per_forward(qmm_rows[:3], "library_ms")},
         # fake_quant: one recon-path sim forward (17 act sites and the
-        # stem's 8-bit weight)
+        # stem's 8-bit weight), ResNet-50's sim forward beside it
         {"name": "fake_quant", "route": "cuda",
          "source": src + "fake_quant.cu",
          "replaces":
              "shiftedscalequantization_tpu/ops/pallas/fake_quant.py:23",
          "launches": sim_counts["fake_quant_act"]
-         + sim_counts["fake_quant_weight"],
+         + sim_counts["fake_quant_weight"] + sum(r50_sim_fq.values()),
          "launches_by_route": {"act": sim_counts["fake_quant_act"],
                                "weight": sim_counts["fake_quant_weight"]},
          "launches_cli": {n: {"act": r["fake_quant_act"],
@@ -3900,7 +4397,17 @@ def main():
          "plain_ms": per_forward(fq_rows, "plain_ms"),
          "bound_ms": per_forward(fq_rows, "bound_ms"),
          "bound_by": max(fq_rows, key=lambda r: r["bound_ms"])["bound_by"],
-         "library_ms": per_forward(fq_rows, "library_ms")},
+         "library_ms": per_forward(fq_rows, "library_ms"),
+          # the 49 act sites of ResNet-50's sim forward; the launches of
+         # each served cell's sim forward (uniform: 54 UniformWQ weights
+         # too, baked none)
+         "resnet50": {
+             "launches": r50_sim_fq,
+             "max_abs_err": max(r["err"] for r in r50["fq_rows"]),
+             "ms": per_forward(r50_fq_act, "ms"),
+             "plain_ms": per_forward(r50_fq_act, "plain_ms"),
+             "bound_ms": per_forward(r50_fq_act, "bound_ms"),
+             "library_ms": per_forward(r50_fq_act, "library_ms")}},
         # int8_conv: one method-path forward (19 units, two weight groups);
         # its library yardstick is two cuDNN bf16 convs per unit
         {"name": "int8_conv", "route": "cuda",
@@ -3913,8 +4420,10 @@ def main():
          + pair["launches"]["int8_conv"]
          + method_cli["launches"].get("int8_conv", 0)
          + sum(r["launches"].get("int8_conv", 0)
-               for r in mn["served"].values()),
+               for r in mn["served"].values())
+         + sum(r50_count("int8_conv").values()),
          "launches_by_path": {
+             **r50_count("int8_conv"),
              "resnet18_shifted": slaunches["int8_conv"],
              "resnet18": launches["int8_conv"],
              "mobilenetv2": mlaunches["int8_conv"],
@@ -3939,7 +4448,21 @@ def main():
                           for r in conv_rows for k in r["roles"]))[1],
          "library_ms": per_path(conv_rows, "library_ms"),
          "library_uniform_s1_ms": per_path(conv_rows, "library_s1_ms",
-                                           "uniform_roles")},
+                                           "uniform_roles"),
+         # ResNet-50's default-plan forward, baked (52 units, S = 2) and
+         # uniform (52, S = 1)
+         "resnet50": {
+             "ms": path_time(r50["conv_rows"]),
+             "bound_ms": path_time(r50["conv_rows"], "bound_ms"),
+             "plain_ms": per_path(r50["conv_rows"], "plain_ms"),
+             "library_ms": per_path(r50["conv_rows"], "library_ms"),
+             "ms_uniform_s1": path_time(r50["conv_rows"], "ms_s1",
+                                        "uniform_roles"),
+             "bound_uniform_s1_ms": path_time(r50["conv_rows"],
+                                              "bound_s1_ms",
+                                              "uniform_roles"),
+             "library_uniform_s1_ms": per_path(
+                 r50["conv_rows"], "library_s1_ms", "uniform_roles")}},
         # int8_group_conv: one RegNetX-600M baked-path forward (16 grouped
         # units, two weight groups), the uniform path's (12, S = 1)
         # beside; its library yardstick is S cuDNN bf16 grouped convs
@@ -4053,7 +4576,15 @@ def main():
                       "mnasnet": {k: v for k, v in mn.items()
                                   if k != "dw_rows"},
                       "mnasnet_dw_conv_shapes": mn["dw_rows"],
-                      "mnasnet_cli": mn_cli}),
+                      "mnasnet_cli": mn_cli,
+                      "resnet50": {k: v for k, v in r50.items()
+                                   if k not in ("conv_rows",
+                                                "packed_rows")},
+                      "resnet50_fake_quant_shapes": r50["fq_rows"],
+                      "resnet50_int8_conv_shapes": r50["conv_rows"],
+                      "resnet50_packed_shapes": r50["packed_rows"],
+                      "native_loader": native,
+                      "resnet50_cli": r50_cli}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -3,8 +3,9 @@
 
 Runs ``cli.main`` of the JAX package (``--package jax``) or of the
 PyTorch port (``--package torch``) on sklearn's digits from the tracked
-trained weights, with the JAX package's native loader off so both
-packages take the same calibration rows. Flags after ``--`` are appended
+trained weights, with both packages' native loaders off so both take
+numpy's ``ArrayLoader`` and the same calibration rows as the recorded
+runs. Flags after ``--`` are appended
 to the defaults below (a later flag wins):
 
     python3 digits_accuracy.py --package torch -- --mode fused --bias_cal true
@@ -43,6 +44,8 @@ def main():
         native_loader.native_available = lambda: False
     else:
         from shiftedscalequantization_tpu_torch import cli
+        from shiftedscalequantization_tpu_torch.data import native_loader
+        native_loader.native_available = lambda: False
     with tempfile.TemporaryDirectory() as tmp:
         argv = DEFAULTS + extra + ["--checkpoint_dir", tmp,
                                    "--log_path", os.path.join(tmp, "run.log")]

@@ -9,12 +9,12 @@ lines: the Fisher losses (``--opt_mode fisher_diag|fisher_full``) and the
 act phases (``--act_mode delta|shift``, ``--act_shift_targets``,
 ``--act_bits_overrides``) included. ``--platform auto`` runs on the CUDA
 card and raises without one; ``--platform cpu`` runs on the CPU.
+``--pretrained`` takes a torch checkpoint (``*.pth`` / ``*.pth.tar``,
+through ``utils/torch_import``) or the trainer's npz; ``--data_path`` an
+ImageNet ImageFolder or npz arrays.
 
 Run:  python -m shiftedscalequantization_tpu_torch.cli --arch resnet18
       --dataset cifar10 --mode fused --n_bits_w 2 --n_bits_a 4 ...
-
-Not ported yet, raising NotImplementedError that names its ROADMAP item:
-``--pretrained *.pth`` (the torchvision importer).
 """
 from __future__ import annotations
 
@@ -26,8 +26,7 @@ import torch
 
 from . import quantize as QZ
 from ._device import resolve_device
-from .data.datasets import DATA_ITEM, build_cifar10_data, \
-    build_imagenet_data
+from .data.datasets import build_cifar10_data, build_imagenet_data
 from .graph import Flags
 from .models import zoo
 from .quantize import QuantConfig, act_flags, calibrate_acts, prepare_model, \
@@ -46,13 +45,17 @@ def seed_all(seed: int):
 
 
 def build_everything(args, device="cuda"):
-    graph, _ = zoo.build(args.arch, dataset=args.dataset)
+    graph, km_fn = zoo.build(args.arch, dataset=args.dataset)
     if getattr(args, "pretrained", None) \
             and args.pretrained.endswith((".pth", ".pth.tar")):
-        raise NotImplementedError(
-            f"--pretrained with a torch checkpoint (utils/torch_import) "
-            f"{DATA_ITEM}")
-    if getattr(args, "pretrained", None):
+        # BRECQ-release torch checkpoint (the reference's hubconf load,
+        # trash/hubconf.py:16-68): a flat state dict, {'state_dict': sd}
+        # or {'model': sd}, all handled by the importer
+        from .utils import torch_import
+        sd = torch_import.load_state_dict(args.pretrained)
+        raw = torch_import.params_from_state_dict(graph, km_fn(graph), sd,
+                                                  device=device)
+    elif getattr(args, "pretrained", None):
         # trained raw params in the trainer's npz layout (the reference's
         # hubconf pretrained-checkpoint role, trash/hubconf.py:16-68)
         from .train import load_raw_params
@@ -93,6 +96,8 @@ def main(argv=None):
 
     graph, raw, cfg = build_everything(args, device=device)
     train_loader, test_loader = build_data(args)
+    print(f"data loaders: train {type(train_loader).__name__}, test "
+          f"{type(test_loader).__name__}")
     cali_data = get_train_samples(train_loader, args.num_samples,
                                   device=device)
     params, qstate = prepare_model(graph, raw, cfg, device=device)

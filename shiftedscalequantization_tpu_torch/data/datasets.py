@@ -1,15 +1,14 @@
 """Data pipelines (PyTorch port of
 ``shiftedscalequantization_tpu/data/datasets.py``): CIFAR-10, digits,
-synth10 and synthetic ImageNet.
+synth10 and ImageNet (an ImageFolder, npz arrays, or a synthetic set when
+the root holds neither).
 
 Batches are NHWC numpy arrays, as in the JAX package; the calibration and
 eval code moves them to the device. Shuffles and synthetic data come from
-``numpy.random.default_rng`` and are bit-identical to the JAX package's.
-
-Not ported yet (ROADMAP.md, 'Open items', queue 1, item 11: import and
-data): the native C++ loader (``use_native=True`` raises) and real ImageNet
-(an ImageFolder or npz arrays under ``data_path`` raise); a missing
-ImageNet root gives the synthetic set, as in the JAX package.
+``numpy.random.default_rng`` and are bit-identical to the JAX package's;
+the native C++ loader (``data/native_loader.py``), which the builders
+prefer wherever it builds, shuffles with its own generator, the same as
+the JAX package's native loader.
 """
 from __future__ import annotations
 
@@ -22,10 +21,6 @@ CIFAR_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
 CIFAR_STD = np.array([0.2023, 0.1994, 0.2010], np.float32)
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
-
-DATA_ITEM = ("is not ported yet (ROADMAP.md, 'Open items', queue 1, "
-             "item 11: import and data)")
-
 
 class ArrayLoader:
     """Minimal batched loader over in-memory arrays (NHWC)."""
@@ -66,10 +61,15 @@ def _synthetic(n, hw, num_classes, seed):
 
 def _make_loader(images, labels, batch_size, shuffle, seed, shard,
                  use_native: Optional[bool] = None):
-    """An ArrayLoader; ``use_native=True`` (the JAX package's C++
-    pipeline) raises."""
-    if use_native:
-        raise NotImplementedError(f"the native loader {DATA_ITEM}")
+    """The native C++ pipeline (threaded prefetch) when ``use_native`` is
+    None and its library builds, or when it is True (then raising with the
+    compiler's message where it cannot build); else an ArrayLoader."""
+    if use_native is not False:
+        from . import native_loader
+        if use_native or native_loader.native_available():
+            return native_loader.NativeLoader(
+                images, labels, batch_size=batch_size, shuffle=shuffle,
+                seed=seed, shard=shard)
     return ArrayLoader(images, labels, batch_size=batch_size,
                        shuffle=shuffle, seed=seed, shard=shard)
 
@@ -141,28 +141,57 @@ def build_synth10_data(batch_size: int = 64, seed: int = 1005, shard=(0, 1),
     return train, test
 
 
-def _has_real_imagenet(root: str) -> bool:
-    """An ImageFolder ({root}/{train,val}/) or npz arrays
-    ({root}/{train,val}.npz) under ``root``."""
-    return all(os.path.isfile(os.path.join(root, f"{split}.npz"))
-               or os.path.isdir(os.path.join(root, split))
-               for split in ("train", "val"))
-
-
 def build_imagenet_data(batch_size: int = 64, data_path: str = "~/dataset/imagenet",
                         seed: int = 1005, shard=(0, 1),
                         synthetic: Optional[bool] = None, synthetic_n: int = 512,
                         input_size: int = 224):
-    """Synthetic ImageNet loaders, (N, 224, 224, 3) with 1000 classes, as
-    the JAX package makes them when ``data_path`` holds no dataset. A real
-    dataset there raises (its readers are not ported yet)."""
+    """ImageNet loaders (reference data/imagenet.py:7-47).
+
+    Real-data resolution order when ``data_path`` holds a dataset:
+      1. ImageFolder JPEGs ({root}/{train,val}/{class}/*.JPEG), decoded
+         with the reference's resize/crop/normalize arithmetic (Pillow);
+         the val split through the native JPEG pipeline when it builds.
+      2. Preprocessed arrays ({root}/{train,val}.npz of images+labels, or
+         shard directories): uint8 gets the val transform's arithmetic,
+         float32 is taken as already normalized NHWC.
+    The synthetic fallback keeps shapes (N, 224, 224, 3) when neither
+    exists.
+    """
+    from . import imagenet_io as inio
     data_path = os.path.expanduser(data_path)
-    real = _has_real_imagenet(data_path)
     if synthetic is None:
-        synthetic = not real
+        synthetic = not (inio.has_image_folder(data_path)
+                         or inio.has_arrays(data_path))
     if not synthetic:
-        raise NotImplementedError(f"reading ImageNet from {data_path!r} "
-                                  f"{DATA_ITEM}")
+        if inio.has_image_folder(data_path):
+            train = inio.ImageFolderLoader(
+                os.path.join(data_path, "train"), batch_size, train=True,
+                input_size=input_size, seed=seed, shard=shard)
+            # the val path is deterministic (resize and crop only): the
+            # native pipeline (libjpeg decode, threaded prefetch) when it
+            # builds; the train path keeps Pillow for its augmentation
+            from .native_loader import NativeJpegLoader, jpeg_available
+            if jpeg_available():
+                _, samples = inio._index_image_folder(
+                    os.path.join(data_path, "val"))
+                rank, world = shard
+                samples = samples[rank::world]
+                test = NativeJpegLoader(
+                    [p for p, _ in samples],
+                    np.asarray([c for _, c in samples], np.int32),
+                    batch_size, input_size=input_size, seed=seed)
+            else:
+                test = inio.ImageFolderLoader(
+                    os.path.join(data_path, "val"), batch_size, train=False,
+                    input_size=input_size, seed=seed, shard=shard)
+            return train, test
+        x_tr, y_tr = inio.load_array_split(data_path, "train", input_size)
+        x_te, y_te = inio.load_array_split(data_path, "val", input_size)
+        train = _make_loader(x_tr, y_tr, batch_size=batch_size, shuffle=True,
+                             seed=seed, shard=shard)
+        test = _make_loader(x_te, y_te, batch_size=batch_size, shuffle=False,
+                            seed=seed, shard=shard)
+        return train, test
     tr = _synthetic(synthetic_n, input_size, 1000, seed)
     te = _synthetic(synthetic_n // 2, input_size, 1000, seed + 1)
     train = ArrayLoader(*tr, batch_size=batch_size, shuffle=True, seed=seed,

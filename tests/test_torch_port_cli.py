@@ -6,8 +6,10 @@ trained ResNet-18 weights, with the same flags. Both packages draw
 minibatch rows from different generators, so the run uses
 ``--num_samples 32``: the reconstruction batch is fixed at 32, so every
 step sees the whole cache and only summation orders differ. The JAX
-package's native loader (when built) shuffles with its own generator, so
-the JAX side is pinned to its numpy ``ArrayLoader``, as the port's is.
+package's and the port's native loaders (each takes it wherever it
+builds) shuffle with their own generator, so both sides are pinned to
+numpy's ``ArrayLoader``: the calibration rows these tolerances were
+measured on.
 
 Tolerances, for the eight blocks: each hard loss within rtol 1e-3 (the
 JAX package sums the loss of a jitted step in f32 with an error of up to
@@ -43,6 +45,7 @@ from shiftedscalequantization_tpu.utils import checkpoint as JCK
 from shiftedscalequantization_tpu.utils import config as JCFG
 import shiftedscalequantization_tpu_torch as tp
 from shiftedscalequantization_tpu_torch import cli as TCLI
+from shiftedscalequantization_tpu_torch.data import native_loader as TNL
 from shiftedscalequantization_tpu_torch.models import zoo as TZ
 from shiftedscalequantization_tpu_torch.ops import wquant as TW
 from shiftedscalequantization_tpu_torch.recon import engine as TE
@@ -130,9 +133,10 @@ def runs(tmp_path_factory):
     try:
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(JNL, "native_available", lambda: False)
+            mp.setattr(TNL, "native_available", lambda: False)
             mp.setattr(JP, "reconstruct_node", record)
             jax_run = _run(JCLI.main, tmp, "jax")
-        port_run = _run(TCLI.main, tmp, "port")
+            port_run = _run(TCLI.main, tmp, "port")
     finally:
         torch.set_num_threads(n)
     return dict(jax=jax_run, port=port_run, fc=fc)

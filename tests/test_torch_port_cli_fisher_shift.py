@@ -9,7 +9,7 @@ shift`` learns a per-channel selection of shifted act steps at every act
 site, on the real digits data from the tracked trained ResNet-18 weights,
 in the manner of ``test_torch_port_cli.py`` (``--num_samples 32``, the
 reconstruction batch: every step sees the whole cache and only summation
-orders differ; the JAX package's native loader is pinned off).
+orders differ; both packages' native loaders are pinned off).
 
 Tolerances: the eight blocks' hard losses within rtol 1e-3 and the fc's
 within 3e-2, as the fused parity run (the JAX package's jitted f32 loss
@@ -35,6 +35,7 @@ from shiftedscalequantization_tpu import cli as JCLI
 from shiftedscalequantization_tpu.data import native_loader as JNL
 from shiftedscalequantization_tpu.utils import checkpoint as JCK
 from shiftedscalequantization_tpu_torch import cli as TCLI
+from shiftedscalequantization_tpu_torch.data import native_loader as TNL
 from shiftedscalequantization_tpu_torch.ops.act_quant import ActShiftQuant
 from shiftedscalequantization_tpu_torch.utils import checkpoint as TCK
 from shiftedscalequantization_tpu_torch.utils import jax_import as JI
@@ -77,8 +78,9 @@ def runs(tmp_path_factory):
     try:
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(JNL, "native_available", lambda: False)
+            mp.setattr(TNL, "native_available", lambda: False)
             jax_run = _run(JCLI.main, tmp, "jax")
-        port_run = _run(TCLI.main, tmp, "port")
+            port_run = _run(TCLI.main, tmp, "port")
     finally:
         torch.set_num_threads(n)
     return dict(jax=jax_run, port=port_run)

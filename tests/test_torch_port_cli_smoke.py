@@ -1,6 +1,5 @@
 """The PyTorch port's CLI (``cli.py``) on its own, on the CPU: the brecq
-(with the act-delta phase), two-phase and mse modes and the refused flag
-at a tiny budget (digits, the tracked trained ResNet-18 weights, 32
+(with the act-delta phase), two-phase and mse modes at a tiny budget (digits, the tracked trained ResNet-18 weights, 32
 calibration rows, 8 steps a target, max scales), as ``tests/test_cli.py``
 drives the JAX package's CLI. The checkpoint flow is in
 ``test_torch_port_cli_resume.py``, the parity run against the JAX CLI in
@@ -80,10 +79,3 @@ def test_two_phase(tmp_path, capsys):
 
 def test_mse_mode(tmp_path):
     _acc_ok(run(tmp_path, ["--mode", "mse", "--mse_level", "2"]))
-
-
-@pytest.mark.parametrize("extra,item", [
-    (["--pretrained", "weights.pth"], "item 11")])
-def test_unported_flags_raise(tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        run(tmp_path, ["--mode", "fused", "--iters_w", "1"] + extra)

@@ -3,8 +3,9 @@ raw-params npz IO (``train.py``), the eval harness (``utils/eval.py``),
 checkpoints (``utils/checkpoint.py``) and run logging
 (``utils/logging.py``), on the CPU.
 
-Loader batches, shuffles and synthetic data are numpy in both packages
-and must be bit-equal. The digits resize is ``F.interpolate`` against
+Loader batches, shuffles and synthetic data must be bit-equal, each
+package at its default loader (the native C++ one wherever it builds,
+else numpy's). The digits resize is ``F.interpolate`` against
 ``jax.image.resize``: atol 1e-6. synth10 rendered from the JAX package's
 own draws against ``synth10_batch``: atol 1e-5 (sigmoid and cos in f32,
 two libraries). Accuracies on the same state and batches: equal; logits
@@ -74,15 +75,14 @@ def test_array_loader_and_synthetic_match_jax(kw):
 
 def test_builders_match_jax(tmp_path):
     """Synthetic CIFAR-10 and ImageNet, and a CIFAR-10 pickle directory,
-    give the JAX package's batches (its native loader off)."""
+    give the JAX package's batches, each package at its default loader
+    (the native one wherever it builds); an ImageNet root that holds no
+    dataset gives the synthetic set."""
     for build in ("build_cifar10_data", "build_imagenet_data"):
         kw = dict(batch_size=16, seed=5, synthetic=True, synthetic_n=40)
         if build == "build_imagenet_data":
             kw["input_size"] = 12
-        else:
-            kw["use_native"] = False
         jtr, jte = getattr(JDS, build)(**kw)
-        kw.pop("use_native", None)
         ttr, tte = getattr(TDS, build)(**kw)
         _assert_same_batches(_batches(ttr), _batches(jtr))
         _assert_same_batches(_batches(tte), _batches(jte))
@@ -93,20 +93,10 @@ def test_builders_match_jax(tmp_path):
         with open(base / name, "wb") as f:
             pickle.dump({b"data": rng.integers(0, 256, (6, 3072), np.uint8),
                          b"labels": list(rng.integers(0, 10, 6))}, f)
-    j = JDS.build_cifar10_data(batch_size=8, data_path=str(tmp_path / "cifar"),
-                               use_native=False)
+    j = JDS.build_cifar10_data(batch_size=8, data_path=str(tmp_path / "cifar"))
     t = TDS.build_cifar10_data(batch_size=8, data_path=str(tmp_path / "cifar"))
     for a, b in zip(t, j):
         _assert_same_batches(_batches(a), _batches(b))
-
-
-def test_unported_data_routes_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TDS.build_cifar10_data(synthetic=True, synthetic_n=8, use_native=True)
-    for split in ("train", "val"):
-        (tmp_path / split / "n01440764").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TDS.build_imagenet_data(data_path=str(tmp_path))
     tr, te = TDS.build_imagenet_data(data_path=str(tmp_path / "none"),
                                      synthetic_n=4, input_size=8)
     assert next(iter(tr))[0].shape == (4, 8, 8, 3)
@@ -124,7 +114,7 @@ def test_digits_match_jax():
     np.testing.assert_allclose(t[2], j[2], atol=1e-6, rtol=0)
     np.testing.assert_array_equal(t[1], j[1])
     np.testing.assert_array_equal(t[3], j[3])
-    jtr, jte = JDS.build_digits_data(batch_size=64, seed=9, use_native=False)
+    jtr, jte = JDS.build_digits_data(batch_size=64, seed=9)
     ttr, tte = TDS.build_digits_data(batch_size=64, seed=9)
     for a, b in ((ttr, jtr), (tte, jte)):
         tb, jb = _batches(a), _batches(b)

@@ -280,7 +280,37 @@ non-zero exit and no result line:
    (R50_CLI_ARGS, --pretrained the phase-34 checkpoint); gates: exit 0,
    the loader kinds printed, 17 targets, the imported FP logits on 4 val
    images card vs CPU within R50_FP_RTOL, the fused checkpoint served
-   with deploy vs sim rel-MSE <= 1e-2, no NaN.
+   with deploy vs sim rel-MSE <= 1e-2, no NaN;
+38. parallel setup: two rank processes on the one card
+   (``chip_smoke.py --parallel-rank DIR`` with SSQ_* set, as
+   tests/test_multiprocess.py starts its ranks), each joining through
+   ``parallel.dist.init_multihost``: the backend rule gives gloo (the
+   ranks share cuda:0, and NCCL refuses two ranks on one device), and
+   the ranks load the kernel library this process built (none rebuilds
+   it); ImageNet ResNet-18 W2A4 at full width, numpy-drawn (host_params,
+   PAR_SEED), MSE scales, 8-bit stem and head, in every process; each
+   rank's seconds by phase;
+39. parallel calibrate: synced_calibrate_acts on 2 x 32 images
+   (fake_quant at every act site): the synced deltas equal on both ranks
+   and within PAR_CAL_RTOL of the mean of the two local calibrations run
+   here, every zero point integral;
+40. parallel recon: sharded_capture of PAR_TARGET (32 rows, the prefix's
+   act sites on), gathered; an untimed two-step warm-up (what the first
+   reconstruction in a process pays once); ddp_reconstruct with the f32
+   and with the int8 wire (PAR_ITERS fused steps, 16 rows a rank, near-1
+   targets): steps/s (gloo through one card, not NCCL), the wire bytes a
+   rank a step from theta's shapes, ranks bit-identical, each trace's
+   last-10 mean <= its first-10; the f32 trace within PARITY_RTOL of
+   reconstruct_node here on the same 32 rows; the int8 hard loss within
+   INT8_WIRE_GAP of the f32's; the gathered caches against one capture
+   here (FP outputs within PAR_CAPTURE_RTOL of their max, inputs but
+   PARITY_FLIPS of them);
+41. parallel validate: sharded_validate of the sim model over 4 x 32
+   images (labels: the one-process sim top-1) equal to validate_model
+   here; each rank's counters, reset before each of its phases, equal to
+   this process's on that rank's share of the calibration, capture and
+   validation, fake_quant_act above 0. Phases 38-41 run under
+   PAR_LIMIT_S.
 
 It imports nothing of JAX. Standard output ends with a JSON line of
 details, a JSON line of the kernels, the nvidia-smi line, the total
@@ -3902,11 +3932,388 @@ def resnet50_cli_phase(torch, ckpt, tmp):
                 deploy_launches=launches, plan_kinds=plan_counts(plan))
 
 
+# ---------------------------------------------------------------------------
+# phases 38-41: data-parallel calibration and reconstruction, two ranks
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 2
+PAR_LIMIT_S = 150                # phases 38-41 together
+PAR_RANK_TIMEOUT_S = 140         # each rank process
+PAR_SEED = 3                     # host_params: the model's weights
+PAR_CAL_IMAGES = 64              # 2 x 32, synced_calibrate_acts
+PAR_ROWS = 32                    # cache rows = the global batch
+PAR_TARGET = "model.layer2.0"    # the block with a downsample
+PAR_ITERS = 100
+PAR_TARGETS = (1.0 - 1.0 / 32, 1.0 + 1.0 / 32, 1.0)
+PAR_VAL = (4, 32)                # validation batches x images
+PAR_CAL_RTOL = 1e-6              # synced delta vs the mean of local ones
+PAR_CAPTURE_RTOL = 1e-4          # ranks' caches vs one capture, of max|x|:
+#                                  FP outputs all, quantized-prefix inputs
+#                                  but PARITY_FLIPS of them (a 4-bit code
+#                                  flipped at a tie of two summation orders)
+INT8_WIRE_GAP = 0.25             # |hard int8 - hard f32| / hard f32
+
+
+def par_settings(engine):
+    return engine.ReconSettings(mode="fused", iters=PAR_ITERS,
+                                batch_size=PAR_ROWS,
+                                shift_targets=PAR_TARGETS)
+
+
+def par_model(torch):
+    """ImageNet ResNet-18 W2A4 at full width, numpy-drawn (host_params,
+    PAR_SEED), MSE scales, 8-bit stem and head, on the card; its
+    calibration, capture and validation images (numpy seeds) and the sim
+    forward's flags. Identical in every process."""
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.graph import Flags
+    from shiftedscalequantization_tpu_torch.models import zoo
+    graph, _ = zoo.build("resnet18", dataset="imagenet")
+    cfg = Q.QuantConfig(n_bits_w=2, n_bits_a=4)
+    params, qs = Q.prepare_model(graph, host_params(torch, graph, PAR_SEED),
+                                 cfg, device=DEVICE)
+    return dict(graph=graph, cfg=cfg, params=params, qs=qs,
+                aflags=Q.act_flags(graph, cfg,
+                                   base=Flags().all_weights(graph)),
+                cal=host_images(torch, PAR_CAL_IMAGES, 11),
+                rows=host_images(torch, PAR_ROWS, 12),
+                val_x=host_images(torch, PAR_VAL[0] * PAR_VAL[1], 13))
+
+
+def par_data(torch, m, qs):
+    """The validation batches, labelled with the calibrated sim model's
+    top-1 on whole batches (one process): a sharded run that reproduces
+    every prediction scores 100.0, where random or FP labels would leave
+    a W2A4 model on random weights near 0 whatever the sharding did."""
+    from shiftedscalequantization_tpu_torch.graph import forward
+    b = PAR_VAL[1]
+    out = []
+    with torch.no_grad():
+        for i in range(0, m["val_x"].shape[0], b):
+            x = m["val_x"][i:i + b]
+            out.append((x, forward(m["graph"], m["params"], qs, x,
+                                   m["aflags"], device=DEVICE).argmax(-1)))
+    return out
+
+
+def theta_of(qs, units):
+    return {u: {f: getattr(qs[u].wq, f).detach().cpu()
+                for f in ("alpha", "beta")
+                if getattr(qs[u].wq, f, None) is not None} for u in units}
+
+
+def parallel_rank(tmp):
+    """One rank of phases 38-41 (``chip_smoke.py --parallel-rank DIR``,
+    started by parallel_phases with SSQ_* set): the kernel library the
+    main process built, synced act calibration, sharded capture,
+    ddp_reconstruct with each wire and sharded_validate, each with the
+    kernel counters reset just before it; results to DIR/rank{r}.pt."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.graph import Flags, \
+        node_unit_names, find_node
+    from shiftedscalequantization_tpu_torch.ops.cuda import _build
+    from shiftedscalequantization_tpu_torch.parallel import dist as PD
+    from shiftedscalequantization_tpu_torch.parallel import make_mesh
+    from shiftedscalequantization_tpu_torch.parallel.collectives import \
+        all_gather_rows
+    from shiftedscalequantization_tpu_torch.recon import engine
+    t0 = time.perf_counter()
+    if not PD.init_multihost():
+        raise RuntimeError("parallel rank: SSQ_NUM_PROCESSES is not set")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    _build.load()
+    out = dict(rank=rank, backend=dist.get_backend(),
+               rule=PD.backend_for("cuda", world),
+               device=str(PD.rank_device()), rebuilt=_build.build_seconds)
+    mesh = make_mesh()
+    m = par_model(torch)
+    graph, cfg, params = m["graph"], m["cfg"], m["params"]
+    torch.cuda.synchronize()
+    secs = {"setup": time.perf_counter() - t0}
+    counts_by = {}
+
+    def run(name, fn):
+        dist.barrier()
+        reset_counts()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        counts_by[name] = counts()
+        print(f"  rank {rank}: {name} {secs[name]:.3f} s", flush=True)
+        return res
+
+    qs = run("calibrate", lambda: PD.synced_calibrate_acts(
+        graph, params, m["qs"], m["cal"], cfg, mesh))
+    aflags = m["aflags"]
+    ci, co = run("capture", lambda: PD.sharded_capture(
+        graph, params, qs, PAR_TARGET, m["rows"], mesh, aflags, Flags(),
+        batch_size=PAR_ROWS))
+    group = mesh.group("data")
+    gci, gco = all_gather_rows(ci, group), all_gather_rows(co, group)
+    units = node_unit_names(find_node(graph, PAR_TARGET))
+    # what the first reconstruction in a process pays once (cuDNN and
+    # lazily loaded kernels; phase 17's probe), outside the timed runs
+    run("recon warm-up", lambda: PD.ddp_reconstruct(
+        graph, params, qs, PAR_TARGET, gci, gco, dataclasses.replace(
+            par_settings(engine), iters=2), 0, mesh))
+    for wire in ("f32", "int8"):
+        rq, rm = run(f"recon {wire}", lambda: PD.ddp_reconstruct(
+            graph, params, qs, PAR_TARGET, gci, gco,
+            par_settings(engine), 0, mesh, wire=wire))
+        out[f"recon {wire}"] = dict(
+            theta=theta_of(rq, units), trace=rm["rec_trace"].cpu(),
+            **{k: float(rm[k]) for k in ("init_loss", "soft_loss",
+                                          "hard_loss")})
+    data = par_data(torch, m, qs)
+    out["acc"] = run("validate", lambda: PD.sharded_validate(
+        graph, params, qs, data, mesh, aflags))
+    out["sites"] = {k: (a.delta.cpu(), a.zero_point.cpu())
+                    for k, a in ((k, getattr(v, "aq", v))
+                                 for k, v in qs.items())
+                    if a is not None and hasattr(a, "zero_point")}
+    out.update(secs=secs, counts=counts_by,
+               theta_numel=[v.numel() for t in out["recon f32"]["theta"]
+                            .values() for v in t.values()])
+    if rank == 0:
+        out["caches"] = (gci.cpu(), gco.cpu())
+        out["qstate"] = Q.to_device(qs, "cpu")
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def wire_bytes(numels, n, wire):
+    """Bytes one rank sends per reduction of tensors of ``numels``
+    elements plus the f32 loss, over ``n`` ranks: a ring all-reduce of
+    f32 sends 2 (n - 1) / n x 4 bytes an element; the int8 wire's
+    all_to_all (n - 1) / n x 1 and its int16 all-gather (n - 1) / n x 2
+    bytes of each padded tensor, and the amaxes (f32, one a tensor) and
+    tensors under 4n elements go as f32."""
+    ring = 2 * (n - 1) / n * 4
+    if wire == "f32":
+        return ring * (sum(numels) + 1)
+    big = [k for k in numels if k >= 4 * n]
+    small = sum(k for k in numels if k < 4 * n) + 1
+    padded = sum(k + (-k) % n for k in big)
+    return (n - 1) / n * 3 * padded + ring * (small + len(big))
+
+
+def parallel_phases(torch):
+    """Phases 38-41 (see the module doc). Returns what the result lines
+    report."""
+    import socket
+    import tempfile
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.graph import Flags
+    from shiftedscalequantization_tpu_torch.recon import capture, engine
+    from shiftedscalequantization_tpu_torch.utils.eval import validate_model
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "SSQ_NUM_PROCESSES": str(PAR_RANKS),
+           "SSQ_COORDINATOR": f"localhost:{port}"}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         tmp.name], env={**env, "SSQ_PROCESS_ID": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(PAR_RANKS)]
+    try:
+        m = par_model(torch)        # the single process's copy, meanwhile
+        outs = [p.communicate(timeout=PAR_RANK_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel rank {r} exited {p.returncode}:"
+                                 f"\n{o[-6000:]}")
+        print("\n".join(line for line in o.splitlines()
+                        if line.startswith("  rank")), flush=True)
+    res = [torch.load(os.path.join(tmp.name, f"rank{r}.pt"),
+                      weights_only=False) for r in range(PAR_RANKS)]
+    tmp.cleanup()
+    graph, cfg, params = m["graph"], m["cfg"], m["params"]
+    print(f"  {PAR_RANKS} ranks on {res[0]['device']} / {res[1]['device']}, "
+          f"backend {res[0]['backend']} (rule: {res[0]['rule']}: ranks "
+          f"share one card, and NCCL refuses two ranks on one device); "
+          f"kernel library rebuilt by a rank: "
+          f"{[r['rebuilt'] for r in res]}; rank seconds "
+          + "; ".join(f"rank {r['rank']} " + ", ".join(
+              f"{k} {v:.3f}" for k, v in r["secs"].items()) for r in res),
+          flush=True)
+    if any(r["rebuilt"] is not None for r in res) \
+            or {r["backend"] for r in res} != {"gloo"} \
+            or res[0]["rule"] != "gloo":
+        raise AssertionError("parallel ranks: a rank rebuilt the kernels or "
+                             "the backend is not the rule's gloo")
+    phase("parallel setup", t0)
+
+    # ---- synced calibration against the mean of local ones ------------
+    t0 = time.perf_counter()
+    share = PAR_CAL_IMAGES // PAR_RANKS
+    local, ref_counts = [], [{} for _ in res]
+    for r in range(PAR_RANKS):
+        reset_counts()
+        local.append(Q.calibrate_acts(graph, params, m["qs"],
+                                      m["cal"][r * share:(r + 1) * share],
+                                      cfg, device=DEVICE))
+        torch.cuda.synchronize()
+        ref_counts[r]["calibrate"] = counts()
+    sites = res[0]["sites"]
+    worst = 0.0
+    for k, (delta, zp) in sites.items():
+        for other in res[1:]:
+            if not (torch.equal(other["sites"][k][0], delta)
+                    and torch.equal(other["sites"][k][1], zp)):
+                raise AssertionError(f"synced {k} differs between ranks")
+        locs = [getattr(q[k], "aq", q[k]) for q in local]
+        mean = sum(a.delta.double().cpu() for a in locs) / len(locs)
+        worst = max(worst, float(((delta.double() - mean).abs()
+                                  / mean.abs()).max()))
+        if not torch.equal(zp, torch.round(zp)):
+            raise AssertionError(f"synced {k}: zero point not integral")
+    print(f"  synced calibration ({len(sites)} act sites, {share} images "
+          f"a rank): deltas equal on both ranks; max rel diff to the mean "
+          f"of the two local calibrations {worst:.3g} (gate "
+          f"{PAR_CAL_RTOL:g}); zero points integral", flush=True)
+    if not worst <= PAR_CAL_RTOL:
+        raise AssertionError(f"synced calibration: rel diff {worst}")
+    qs = Q.to_device(res[0]["qstate"], DEVICE)
+    phase("parallel calibrate", t0)
+
+    # ---- ddp reconstruction against the single process ----------------
+    t0 = time.perf_counter()
+    aflags = m["aflags"]
+    rows = PAR_ROWS // PAR_RANKS
+    for r in range(PAR_RANKS):
+        reset_counts()
+        capture.capture_io(graph, params, qs, PAR_TARGET,
+                           m["rows"][r * rows:(r + 1) * rows], aflags,
+                           Flags(), batch_size=PAR_ROWS, device=DEVICE)
+        torch.cuda.synchronize()
+        ref_counts[r]["capture"] = counts()
+    gci, gco = (t.to(DEVICE) for t in res[0]["caches"])
+    ci, co = capture.capture_io(graph, params, qs, PAR_TARGET, m["rows"],
+                                aflags, Flags(), batch_size=PAR_ROWS,
+                                device=DEVICE)
+    cap_err = float((gco - co).abs().max() / co.abs().max())
+    cap_flips = float(((gci - ci).abs() > PAR_CAPTURE_RTOL
+                       * ci.abs().max()).double().mean())
+    reset_counts()
+    t1 = time.perf_counter()
+    _, sm = engine.reconstruct_node(graph, params, qs, PAR_TARGET, gci, gco,
+                                    par_settings(engine), seed=0)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t1
+    single_counts = counts()
+    want = sm["rec_trace"].double().cpu()
+    rec = {}
+    for wire in ("f32", "int8"):
+        a, b = (r[f"recon {wire}"] for r in res)
+        same = torch.equal(a["trace"], b["trace"]) and all(
+            torch.equal(a["theta"][u][f], b["theta"][u][f])
+            for u in a["theta"] for f in a["theta"][u]) and all(
+            a[k] == b[k] for k in ("init_loss", "soft_loss", "hard_loss"))
+        tr = a["trace"].double()
+        means = (float(tr[:10].mean()), float(tr[-10:].mean()))
+        rec[wire] = dict(
+            steps_per_s=[PAR_ITERS / r["secs"][f"recon {wire}"]
+                         for r in res],
+            wire_bytes_per_step=wire_bytes(res[0]["theta_numel"], PAR_RANKS,
+                                           wire),
+            trace_first10_last10=means, ranks_identical=same,
+            trace_rel_to_single=float(((tr - want).abs() / want.abs())
+                                      .max()),
+            **{k: a[k] for k in ("init_loss", "soft_loss", "hard_loss")})
+    rec["int8_hard_gap"] = abs(rec["int8"]["hard_loss"]
+                               - rec["f32"]["hard_loss"]) \
+        / abs(rec["f32"]["hard_loss"])
+    for wire in ("f32", "int8"):
+        w = rec[wire]
+        print(f"  ddp_reconstruct {PAR_TARGET}, wire {wire}, {PAR_ITERS} "
+              f"steps of {rows} rows a rank (gloo through one card, 2 ranks "
+              f"on cuda:0, not NCCL): steps/s "
+              + " / ".join(f"{v:.2f}" for v in w["steps_per_s"])
+              + f"; wire {w['wire_bytes_per_step']:.0f} bytes a rank a step "
+              f"({sum(res[0]['theta_numel'])} theta elements); loss before "
+              f"{w['init_loss']:.6g}, soft {w['soft_loss']:.6g}, hard "
+              f"{w['hard_loss']:.6g}; trace {w['trace_first10_last10'][0]:.6g}"
+              f" -> {w['trace_first10_last10'][1]:.6g}; ranks bit-identical "
+              f"{w['ranks_identical']}; trace vs the single process max rel "
+              f"{w['trace_rel_to_single']:.3g}", flush=True)
+    print(f"  single process on the card: {PAR_ITERS} steps of {PAR_ROWS} "
+          f"rows in {single_s:.3f} s ({PAR_ITERS / single_s:.2f} steps/s), "
+          f"hard {float(sm['hard_loss']):.6g}; int8 vs f32 hard-loss gap "
+          f"{rec['int8_hard_gap']:.4g} (gate {INT8_WIRE_GAP:g}); ranks' "
+          f"caches vs one capture: FP outputs max rel {cap_err:.3g} (gate "
+          f"{PAR_CAPTURE_RTOL:g}), inputs off by more than that "
+          f"{cap_flips:.3g} (gate {PARITY_FLIPS:g})", flush=True)
+    for wire in ("f32", "int8"):
+        w = rec[wire]
+        if not (w["ranks_identical"] and w["trace_first10_last10"][1]
+                <= w["trace_first10_last10"][0]):
+            raise AssertionError(f"ddp {wire}: ranks differ or the trace "
+                                 f"rose: {w}")
+    if not (rec["f32"]["trace_rel_to_single"] <= PARITY_RTOL
+            and rec["int8_hard_gap"] <= INT8_WIRE_GAP
+            and cap_err <= PAR_CAPTURE_RTOL and cap_flips <= PARITY_FLIPS):
+        raise AssertionError(f"ddp reconstruction gates: {rec}, captures "
+                             f"{cap_err} {cap_flips}")
+    phase("parallel recon", t0)
+
+    # ---- sharded validation against one process; the launches ---------
+    t0 = time.perf_counter()
+    data = par_data(torch, m, qs)
+    acc = validate_model(graph, params, qs, data, aflags)
+    b = PAR_VAL[1] // PAR_RANKS
+    for r in range(PAR_RANKS):
+        reset_counts()
+        validate_model(graph, params, qs, [(x[r * b:(r + 1) * b],
+                                            y[r * b:(r + 1) * b])
+                                           for x, y in data], aflags)
+        torch.cuda.synchronize()
+        ref_counts[r]["validate"] = counts()
+    launches = [{k: r["counts"][k]["fake_quant_act"] for k in
+                 ("calibrate", "capture", "validate")} for r in res]
+    print(f"  sharded_validate over {PAR_VAL[0]} x {PAR_VAL[1]} images "
+          f"(labels: the one-process sim top-1): {[r['acc'] for r in res]}; "
+          f"one "
+          f"process {acc}; fake_quant_act launches by rank "
+          f"{launches}, by the single process on each rank's share "
+          f"{[{k: c[k]['fake_quant_act'] for k in c} for c in ref_counts]}"
+          f"; recon launches a rank f32 {res[0]['counts']['recon f32']}, "
+          f"single process {single_counts}", flush=True)
+    if any(r["acc"] != acc for r in res):
+        raise AssertionError(f"sharded_validate {[r['acc'] for r in res]} "
+                             f"!= {acc}")
+    for r, c in zip(res, ref_counts):
+        if any(r["counts"][k] != c[k] for k in c) \
+                or not sum(launches[r["rank"]].values()) > 0:
+            raise AssertionError(f"rank {r['rank']} launches "
+                                 f"{r['counts']} != {c}")
+    phase("parallel validate", t0)
+    return dict(recon=rec, acc=acc, launches=launches,
+                secs=[r["secs"] for r in res], single_steps_per_s=PAR_ITERS
+                / single_s, cal_rel=worst, capture_rel=cap_err,
+                capture_in_off=cap_flips, backend=res[0]["backend"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return parallel_rank(sys.argv[2])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from shiftedscalequantization_tpu_torch import deploy
     from shiftedscalequantization_tpu_torch import quantize as Q
@@ -4246,6 +4653,10 @@ def main():
     with time_limit("resnet50 cli", R50_CLI_LIMIT_S):
         r50_cli = resnet50_cli_phase(torch, r50_ckpt, r50_tmp.name)
     r50_tmp.cleanup()
+
+    # ---- data-parallel calibration and reconstruction, two ranks -------
+    with time_limit("parallel", PAR_LIMIT_S):
+        par = parallel_phases(torch)
     r50_served = r50["served"]
     unfused.update({k: r["unfused"] for k, r in r50_served.items()})
 
@@ -4392,6 +4803,9 @@ def main():
          "launches_act_shift": {
              "act": method_cli["sim_counts"]["fake_quant_act"],
              "weight": method_cli["sim_counts"]["fake_quant_weight"]},
+         # each rank of phases 38-41 (synced calibration, sharded
+         # capture, sharded validation), act sites
+         "launches_parallel": par["launches"],
          "max_abs_err": max(r["err"] for r in fq_rows),
          "ms": per_forward(fq_rows, "ms"),
          "plain_ms": per_forward(fq_rows, "plain_ms"),
@@ -4584,7 +4998,8 @@ def main():
                       "resnet50_int8_conv_shapes": r50["conv_rows"],
                       "resnet50_packed_shapes": r50["packed_rows"],
                       "native_loader": native,
-                      "resnet50_cli": r50_cli}),
+                      "resnet50_cli": r50_cli,
+                      "parallel": par}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -35,6 +35,21 @@ the same rows; the JAX engine's ``fold_in(key, 877)`` / ``(key, 991)``
 sub-streams of the warm start and the refine are ``_fold_in(seed, 877)`` /
 ``(seed, 991)``. The whole step runs with TF32 off (``graph._fp32``), its
 backward included.
+
+Data-parallel runs (``parallel/dist``). With ``s.grad_psum_axis`` set and
+a ``mesh`` (``parallel.mesh.Mesh``) given, every loop averages the step's
+gradients and its traced loss over that mesh axis between ``backward()``
+and ``opt.step()``, through ``parallel.collectives.pmean_tree`` with the
+wire ``s.grad_wire`` (the JAX engine's ``pmean_tree`` /
+``lax.pmean``). Each rank then holds its own shard of the caches and
+draws its rows from it (``ddp_reconstruct``), and the first-batch losses
+are data rank 0's: its first rows are the set's first rows.
+``split_rows`` (``sharded_reconstruct``) instead hands every rank the
+whole caches and splits each step's drawn rows over the data axis. Over a
+``model`` axis of more than one rank, theta and its Adam moments are
+held as out-channel slices: each rank updates its slice, and the slices
+are gathered before each forward. An axis without a mesh raises, as an
+unbound axis name does under JAX; with the axis unset nothing changes.
 """
 from __future__ import annotations
 
@@ -321,9 +336,39 @@ def _rows(seed: int, n: int, batch: int, iters: int, device):
                         for _ in range(iters)]).to(device)
 
 
+def _grad_mean(s: ReconSettings, mesh):
+    """The average over ``mesh``'s axis ``s.grad_psum_axis`` of a tree of
+    gradients and losses, with the wire ``s.grad_wire``; None when the
+    axis is unset."""
+    if s.grad_psum_axis is None:
+        if mesh is not None:
+            raise ValueError("a mesh was given but s.grad_psum_axis is unset")
+        return None
+    if mesh is None:
+        raise ValueError(f"grad_psum_axis {s.grad_psum_axis!r} is set but "
+                         f"no mesh binds it")
+    from ..parallel.collectives import pmean_tree
+    group = mesh.group(s.grad_psum_axis)
+    return lambda tree: pmean_tree(tree, group, s.grad_wire)
+
+
+def _step(loss, trace_loss, leaves, mean):
+    """Backward of ``loss``; with ``mean``, the gradients and the traced
+    loss averaged over the ranks. Returns the traced loss to record."""
+    loss.backward()
+    if mean is None:
+        return trace_loss.detach()
+    grads, trace_loss = mean(([p.grad if p.grad is not None
+                               else torch.zeros_like(p) for p in leaves],
+                              trace_loss.detach()))
+    for p, g in zip(leaves, grads):
+        p.grad = g
+    return trace_loss
+
+
 def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
                      cached_out, s: ReconSettings, seed: int = 0,
-                     cached_grads=None):
+                     cached_grads=None, mesh=None, split_rows: bool = False):
     """Reconstruct one node from its cached (input, FP output) rows; the
     node runs where the caches lie. ``cached_grads`` (capture_grads, one
     row per cached row) weights the Fisher loss forms; without them every
@@ -332,7 +377,11 @@ def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
     ``init_loss`` (the loss of the incoming quantizers), ``soft_loss`` and
     ``hard_loss`` on the first batch, ``selection_ratio`` and, when they
     ran, ``warmstart`` and the refine's ``hard_loss_prerefine`` /
-    ``refine_trace``."""
+    ``refine_trace``.
+
+    ``mesh`` and ``split_rows``: the data-parallel run (module doc).
+    Without ``split_rows`` this rank's caches are its shard and its
+    first-batch losses are data rank 0's."""
     if s.mode not in ("fused", "brecq", "shift", "round", "round_refine"):
         raise ValueError(f"reconstruction mode {s.mode!r}")
     node = find_node(graph, node_name)
@@ -343,10 +392,19 @@ def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
     yb0 = cached_out[: s.batch_size].float()
     gb0 = None if cached_grads is None \
         else cached_grads[: s.batch_size].float()
-    init_loss = _eval_rec(node, params, qstate,
-                          Flags(weight_on=frozenset(unit_names),
-                                output_affine=s.opt_output_affine),
-                          xb0, yb0, gb0, s, p_norm)
+    mean = _grad_mean(s, mesh)
+    if mesh is None or split_rows:
+        def first(v):
+            return v
+    else:
+        from ..parallel.dist import from_data_rank0
+
+        def first(v):
+            return from_data_rank0(v, mesh)
+    init_loss = first(_eval_rec(node, params, qstate,
+                                Flags(weight_on=frozenset(unit_names),
+                                      output_affine=s.opt_output_affine),
+                                xb0, yb0, gb0, s, p_norm))
 
     # fused warm start: a short shift pre-solve whose solved selection
     # re-seeds the fused init (coarse candidate sets only)
@@ -362,7 +420,8 @@ def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
                 lr=s.warmstart_lr if s.warmstart_lr else s.lr)
             qs_ws, warm_metrics = reconstruct_node(
                 graph, params, qstate, node_name, cached_inp, cached_out,
-                s_ws, _fold_in(seed, 877), cached_grads=cached_grads)
+                s_ws, _fold_in(seed, 877), cached_grads=cached_grads,
+                mesh=mesh, split_rows=split_rows)
             warm_alphas = {n: qs_ws[n].wq.alpha for n in unit_names
                            if isinstance(qs_ws[n].wq, W.ShiftedScaleWQ)}
             s = dataclasses.replace(s, iters=s.iters - ws_iters)
@@ -391,12 +450,19 @@ def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
                   output_affine=s.opt_output_affine)
     theta = {n: {k: v.detach().clone().requires_grad_(True)
                  for k, v in t.items()} for n, t in theta.items()}
+    gather = None
+    if mesh is not None and mesh.shape["model"] > 1:
+        from ..parallel.dist import model_slices
+        theta, gather = model_slices(theta, mesh)
     leaves = [v for t in theta.values() for v in t.values()]
     metrics = {"init_loss": init_loss}
     if s.iters > 0:
         opt = torch.optim.Adam(leaves, lr=s.lr)
         rows = _rows(seed, cached_inp.shape[0], s.batch_size, s.iters,
                      cached_inp.device)
+        if split_rows:
+            from ..parallel.dist import data_share
+            rows = data_share(rows, mesh)
         trace = []
         with _fp32():
             for i, idx in enumerate(rows):
@@ -404,24 +470,26 @@ def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
                 yb = cached_out[idx].float()
                 gb = None if cached_grads is None \
                     else cached_grads[idx].float()
-                qs = _insert_theta(qstate, theta)
+                qs = _insert_theta(qstate, theta if gather is None
+                                   else gather(theta))
                 rec = rec_loss_fn(apply_node(node, params, qs, xb, flags),
                                   yb, gb, s.rec_loss, p_norm)
                 reg = _reg_terms(qs, unit_names, float(i), s)
                 opt.zero_grad(set_to_none=True)
-                (rec + reg).backward()
+                trace.append(_step(rec + reg, rec, leaves, mean))
                 opt.step()
-                trace.append(rec.detach())
         metrics["rec_trace"] = torch.stack(trace)
+    if gather is not None:
+        theta = gather(theta)
     qstate = _insert_theta(qstate, {n: {k: v.detach() for k, v in t.items()}
                                     for n, t in theta.items()})
 
     # soft and hard loss on the first batch
-    metrics["soft_loss"] = _eval_rec(node, params, qstate, flags, xb0, yb0,
-                                     gb0, s, p_norm)
+    metrics["soft_loss"] = first(_eval_rec(node, params, qstate, flags, xb0,
+                                           yb0, gb0, s, p_norm))
     qstate = _harden(qstate, unit_names, s.mode)
-    metrics["hard_loss"] = _eval_rec(node, params, qstate, flags, xb0, yb0,
-                                     gb0, s, p_norm)
+    metrics["hard_loss"] = first(_eval_rec(node, params, qstate, flags, xb0,
+                                           yb0, gb0, s, p_norm))
     metrics["selection_ratio"] = selection_ratios(qstate, unit_names)
     if s.mode == "fused":
         for n in unit_names:
@@ -438,7 +506,8 @@ def reconstruct_node(graph, params, qstate, node_name: str, cached_inp,
                                  post_round_frac=0.0)
         qstate, m2 = reconstruct_node(
             graph, params, qstate, node_name, cached_inp, cached_out, s2,
-            _fold_in(seed, 991), cached_grads=cached_grads)
+            _fold_in(seed, 991), cached_grads=cached_grads, mesh=mesh,
+            split_rows=split_rows)
         metrics["hard_loss_prerefine"] = metrics["hard_loss"]
         metrics["hard_loss"] = m2["hard_loss"]
         metrics["refine_trace"] = m2.get("rec_trace")
@@ -459,14 +528,17 @@ def cosine_lr(iters: int):
 
 def reconstruct_act_delta(graph, params, qstate, node_name: str,
                           cached_inp, cached_out, s: ReconSettings,
-                          seed: int = 0, p_norm: Optional[float] = None):
+                          seed: int = 0, p_norm: Optional[float] = None,
+                          mesh=None):
     """Learn a node's act-quant deltas (reference layer_recon.py:57-61,
     --iters_a/--lr/--p defaults): the scalar delta of each unit act site
     in the node and, for a block, of its block-level site, by Adam at
     ``s.act_lr`` with a cosine decay over ``s.iters`` steps, against the
     L_p loss at ``s.act_p``. The node runs with its weights quantized and
-    those sites on. Returns (new_qstate, metrics with ``rec_trace``)."""
+    those sites on. Returns (new_qstate, metrics with ``rec_trace``).
+    ``mesh``: the data-parallel run (module doc)."""
     p_norm = s.act_p if p_norm is None else p_norm
+    mean = _grad_mean(s, mesh)
     node = find_node(graph, node_name)
     unit_names = node_unit_names(node)
     sites = [u for u in unit_names
@@ -493,7 +565,8 @@ def reconstruct_act_delta(graph, params, qstate, node_name: str,
 
     metrics = {}
     if s.iters > 0 and theta:      # a node without act sites learns nothing
-        opt = torch.optim.Adam(list(theta.values()), lr=s.act_lr)
+        leaves = list(theta.values())
+        opt = torch.optim.Adam(leaves, lr=s.act_lr)
         sched = torch.optim.lr_scheduler.LambdaLR(opt, cosine_lr(s.iters))
         rows = _rows(seed, cached_inp.shape[0], s.batch_size, s.iters,
                      cached_inp.device)
@@ -504,10 +577,9 @@ def reconstruct_act_delta(graph, params, qstate, node_name: str,
                                   cached_inp[idx].float(), flags)
                 loss = lp_loss_cl(pred, cached_out[idx].float(), p_norm)
                 opt.zero_grad(set_to_none=True)
-                loss.backward()
+                trace.append(_step(loss, loss, leaves, mean))
                 opt.step()
                 sched.step()
-                trace.append(loss.detach())
         metrics["rec_trace"] = torch.stack(trace)
     return insert(qstate, {k: v.detach() for k, v in theta.items()}), \
         metrics
@@ -519,7 +591,7 @@ def reconstruct_act_delta(graph, params, qstate, node_name: str,
 
 def reconstruct_act_shift(graph, params, qstate, node_name: str,
                           cached_inp, cached_out, s: ReconSettings,
-                          seed: int = 0, shift_targets=None):
+                          seed: int = 0, shift_targets=None, mesh=None):
     """Activation shifted-scale reconstruction (the fused act branch,
     reference layer_recon_fused_shiftedScale.py:37-57, with the intended
     ChannelQuantAct behaviour): every act site of the node (unit sites
@@ -529,9 +601,12 @@ def reconstruct_act_shift(graph, params, qstate, node_name: str,
     act sites off; then Adam at ``s.lr`` on the alphas against the L2
     loss (no regularizer), the node's weights quantized and the sites
     on, and the selections hardened. Returns (new_qstate, metrics with
-    ``rec_trace``)."""
+    ``rec_trace``). ``mesh``: the data-parallel run (module doc); the
+    alphas start from the first 64 rows of the whole set, gathered over
+    the data axis."""
     if shift_targets is None:
         shift_targets = s.act_shift_targets
+    mean = _grad_mean(s, mesh)
     node = find_node(graph, node_name)
     unit_names = node_unit_names(node)
     qstate = dict(qstate)
@@ -544,6 +619,9 @@ def reconstruct_act_shift(graph, params, qstate, node_name: str,
     # each site's captured output, with the sites off, is the tensor its
     # quantizer will see
     sample = cached_inp[: min(64, cached_inp.shape[0])].float()
+    if mean is not None:
+        from ..parallel.dist import global_head
+        sample = global_head(sample, 64, mesh, s.grad_psum_axis)
     with torch.no_grad():
         _, site_acts = apply_node_multi_capture(
             node, params, qstate, sample,
@@ -572,7 +650,8 @@ def reconstruct_act_shift(graph, params, qstate, node_name: str,
     flags = Flags(weight_on=frozenset(unit_names), act_on=frozenset(sites))
     metrics = {}
     if s.iters > 0 and theta:
-        opt = torch.optim.Adam(list(theta.values()), lr=s.lr)
+        leaves = list(theta.values())
+        opt = torch.optim.Adam(leaves, lr=s.lr)
         rows = _rows(seed, cached_inp.shape[0], s.batch_size, s.iters,
                      cached_inp.device)
         trace = []
@@ -582,9 +661,8 @@ def reconstruct_act_shift(graph, params, qstate, node_name: str,
                                   cached_inp[idx].float(), flags)
                 loss = lp_loss_cl(pred, cached_out[idx].float(), 2.0)
                 opt.zero_grad(set_to_none=True)
-                loss.backward()
+                trace.append(_step(loss, loss, leaves, mean))
                 opt.step()
-                trace.append(loss.detach())
         metrics["rec_trace"] = torch.stack(trace)
     return insert(qstate, {k: v.detach() for k, v in theta.items()},
                   hard_targets=True), metrics

@@ -36,7 +36,9 @@ def test_port_and_smoke_script_import_no_jax():
                 "utils/logging.py", "utils/eval.py", "utils/checkpoint.py",
                 "models/regnet.py", "ops/cuda/group_conv.py",
                 "ops/act_quant.py", "recon/search.py", "models/mnasnet.py",
-                "ops/cuda/dw_conv.py"):
+                "ops/cuda/dw_conv.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/collectives.py",
+                "parallel/dist.py"):
         assert PORT / new in files, new
     for path in files:
         for name in _imports(path):
@@ -98,6 +100,46 @@ def test_entry_points_without_a_card_raise(no_card):
     # the CLI without --platform cpu (default auto: the card)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--dataset", "cifar10", "--synthetic_data", "true"])
+
+
+PARALLEL_ENTRIES = ("init_multihost", "sharded_validate", "sharded_capture",
+                    "synced_calibrate_acts", "ddp_reconstruct",
+                    "sharded_reconstruct")
+
+
+@pytest.mark.parametrize("name", PARALLEL_ENTRIES)
+def test_parallel_entry_points_without_a_card_raise(no_card, name):
+    """``parallel/dist``'s entry points run each rank on its card unless
+    asked for the CPU, and raise without one before any collective."""
+    from shiftedscalequantization_tpu_torch.parallel import dist as PD
+    from shiftedscalequantization_tpu_torch.parallel import make_mesh
+    from shiftedscalequantization_tpu_torch.recon import ReconSettings
+    graph, _ = TZ.build("resnet18", num_classes=10, dataset="cifar10")
+    cfg = tp.QuantConfig(w_scale_method="max", a_scale_method="max")
+    params, qs = tp.prepare_model(graph, TZ.init_params(graph, device="cpu"),
+                                  cfg, device="cpu")
+    mesh = make_mesh()
+    x = torch.zeros((2, 32, 32, 3))
+    cache = torch.zeros((2, 8, 8, 64))
+    calls = {
+        "init_multihost": lambda: PD.init_multihost(
+            "localhost:1", num_processes=2, process_id=0),
+        "sharded_validate": lambda: PD.sharded_validate(
+            graph, params, qs, [(x, np.zeros(2, np.int64))], mesh),
+        "sharded_capture": lambda: PD.sharded_capture(
+            graph, params, qs, "model.layer1.0", x, mesh, tp.Flags(),
+            tp.Flags()),
+        "synced_calibrate_acts": lambda: PD.synced_calibrate_acts(
+            graph, params, qs, x, cfg, mesh),
+        "ddp_reconstruct": lambda: PD.ddp_reconstruct(
+            graph, params, qs, "model.layer1.0", cache, cache,
+            ReconSettings(iters=1, batch_size=2), 0, mesh),
+        "sharded_reconstruct": lambda: PD.sharded_reconstruct(
+            graph, params, qs, "model.layer1.0", cache, cache,
+            ReconSettings(iters=1, batch_size=2), 0, mesh)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[name]()
+    assert not torch.distributed.is_initialized()
 
 
 def test_unported_weight_quantizer_is_refused():

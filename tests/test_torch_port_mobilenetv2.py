@@ -299,6 +299,44 @@ def test_deploy_forward_matches_jax(state, monkeypatch, env):
     np.testing.assert_array_equal(got.numpy().argmax(-1), want.argmax(-1))
 
 
+@pytest.mark.parametrize("env", [DW, DW_PACKED], ids=["dw", "dw+packed"])
+def test_deploy_vs_sim_gap_matches_jax(state, monkeypatch, env):
+    """The port's deploy-vs-sim logit gap (rel-MSE of deploy against its
+    own sim forward with every act site on) equals the JAX package's own
+    gap on the same state (MSE scales, the serving configuration) within
+    1e-4 of it, with the same top-1 agreement. The two sims part by
+    summation order only (rel-MSE about 1e-13), so the gaps agree to
+    about 2e-6 of their value."""
+    _set_env(monkeypatch, env)
+    pj, pt = _plans(state)
+    key = tuple(sorted(env.items()))
+    if key not in state["jax_deploy"]:
+        state["jax_deploy"][key] = np.asarray(JD.deploy_forward(
+            state["g"], state["jd"], state["jsteps"],
+            jnp.asarray(state["x"]), plan=pj))
+    jdep = state["jax_deploy"][key]
+    cfg = ssq.QuantConfig(n_bits_w=2, n_bits_a=4)
+    jflags = j_act_flags(state["g"], cfg,
+                         base=ssq.Flags().all_weights(state["g"]))
+    if "jax_sim" not in state:
+        state["jax_sim"] = np.asarray(jax.jit(lambda x: ssq.forward(
+            state["g"], state["params"], state["qs"], x, jflags))(
+                jnp.asarray(state["x"])))
+    jsim = state["jax_sim"]
+    tflags = t_act_flags(state["gt"], tp.QuantConfig(n_bits_w=2, n_bits_a=4),
+                         base=tp.Flags().all_weights(state["gt"]))
+    x = torch.as_tensor(state["x"])
+    tsim = tp.forward(state["gt"], state["tparams"], state["tqs"], x, tflags,
+                      device="cpu").numpy()
+    tdep = TD.deploy_forward(state["gt"], state["td"], state["tsteps"], x,
+                             plan=pt, device="cpu").numpy()
+    jgap, tgap = _rel_mse(jdep, jsim), _rel_mse(tdep, tsim)
+    assert np.isfinite(tgap) and abs(tgap - jgap) <= 1e-4 * jgap, \
+        (tgap, jgap)
+    assert (tdep.argmax(-1) == tsim.argmax(-1)).sum() == \
+        (jdep.argmax(-1) == jsim.argmax(-1)).sum()
+
+
 def test_dw_units_launch_from_plan_constants(state, monkeypatch):
     """The serving plan holds each dw_int8 unit's launch constants, built
     once: the tap words unpack to the unit's codes, scalef is scale *

@@ -414,6 +414,45 @@ def test_deploy_forward_matches_jax(case):
     np.testing.assert_array_equal(got.numpy().argmax(-1), want.argmax(-1))
 
 
+@pytest.mark.parametrize("case", ["regnetx_200m-uniform",
+                                  "regnetx_200m-baked"])
+def test_deploy_vs_sim_gap_matches_jax(case):
+    """The port's deploy-vs-sim logit gap (rel-MSE of deploy against its
+    own sim forward with every act site on) equals the JAX package's own
+    gap on the same state within 1e-9 of it, with the same top-1
+    agreement: on 1/8-grid images with power-of-two steps both sims and
+    both deploys compute the same values. Many requant inputs then sit
+    on .5 ties, where deploy rounds half up and sim half to even, so the
+    gap itself is large in both packages; the realistic gap is the
+    card's (chip_smoke.py phases 24-25, beside regnet_parity_gap.py's)."""
+    arch, dataset, (nbw, nba), baked, hw = DEPLOY_CASES[case]
+    s = _state(arch, dataset, nbw, nba, hw, baked=baked, n=8, snap=True,
+               num_classes=10)
+    pj = JD.make_deploy_plan(s["g"], s["jd"], s["jsteps"],
+                             input_hw=(224, 224))
+    pt = TD.make_deploy_plan(s["gt"], s["td"], s["tsteps"],
+                             input_hw=(224, 224))
+    jflags = j_act_flags(s["g"], s["cfg"],
+                         base=ssq.Flags().all_weights(s["g"]))
+    tflags = t_act_flags(s["gt"], s["tcfg"],
+                         base=tp.Flags().all_weights(s["gt"]))
+    x = jnp.asarray(s["x"])
+    jsim = np.asarray(jax.jit(
+        lambda x: ssq.forward(s["g"], s["params"], s["qs"], x, jflags))(x))
+    jdep = np.asarray(jax.jit(lambda x: JD.deploy_forward(
+        s["g"], s["jd"], s["jsteps"], x, plan=pj))(x))
+    tx = torch.as_tensor(s["x"])
+    tsim = tp.forward(s["gt"], s["tparams"], s["tqs"], tx, tflags,
+                      device="cpu").numpy()
+    tdep = TD.deploy_forward(s["gt"], s["td"], s["tsteps"], tx, plan=pt,
+                             device="cpu").numpy()
+    jgap, tgap = _rel_mse(jdep, jsim), _rel_mse(tdep, tsim)
+    assert np.isfinite(tgap) and abs(tgap - jgap) <= 1e-9 * jgap, \
+        (tgap, jgap)
+    assert (tdep.argmax(-1) == tsim.argmax(-1)).sum() == \
+        (jdep.argmax(-1) == jsim.argmax(-1)).sum()
+
+
 # ---------------------------------------------------------------------------
 # reconstruction of a block with a grouped conv
 # ---------------------------------------------------------------------------

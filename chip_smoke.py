@@ -310,7 +310,39 @@ non-zero exit and no result line:
    here; each rank's counters, reset before each of its phases, equal to
    this process's on that rank's share of the calibration, capture and
    validation, fake_quant_act above 0. Phases 38-41 run under
-   PAR_LIMIT_S.
+   PAR_LIMIT_S;
+42. train: first, no child process of this one is alive and no process
+   group is left; then train.train_model on CIFAR ResNet-18 (published
+   widths 64-512, 32x32) from init_params(seed 0), synth10 drawn and
+   rendered on the card, batch 256, TRAIN_STEPS steps, chunk 100, lr 0.1,
+   f32 with TF32 off: steps/s, images/s, each chunk's mean loss and train
+   accuracy, the held-out top-1 on synth10_test_arrays() (2048 images);
+   gates: every loss finite, the last chunk's mean loss below the
+   first's, top-1 >= TRAIN_TOP1_GATE;
+43. train parity: the first PAR_STEPS steps of phase 42's schedule
+   (train.train_step, make_optimizer) from the same initial params on
+   fixed CPU-drawn batches of 16, on the card and on the CPU: each step's
+   loss within TRAIN_LOSS_RTOL, the final params and the BN running stats
+   each within TRAIN_PARAM_RTOL relative L2 (the updates and the worst
+   tensor beside); the first batch's f32 gradient on the card within
+   GRAD_F64_RTOL of float64 on the card (the CPU's beside); then
+   phase 42's params through save_raw_params / load_raw_params (a
+   temporary file), eval_accuracy equal to phase 42's top-1;
+44. sweep: utils.sweep.main over SWEEP_GRID on the port's CLI (brecq,
+   SWEEP_BASE) from phase 43's npz; gates: two records, no error, each a
+   finite top-1, fake_quant_act launched; the same call again runs
+   nothing;
+45. profiling: profiling.layer_timing on ImageNet ResNet-18 W2A4 (the sim
+   forward with weights and act sites on, batch 256, PROFILE_INNER
+   launches a node) with format_timing's table, the sum of its rows
+   beside this state's whole sim forward and phase 19's; one f32 3x3 conv
+   at layer3.1's shape, its rate and its error against float64; gates:
+   every row's ms positive and finite, no roofline share (direct
+   multiply-adds against the f32 CUDA-core peak) above PROFILE_ROOF_MAX,
+   each row's flops graph_flops', fake_quant_act launched, the conv
+   within F32_CONV_RTOL of float64 (TF32 off); one sim forward under
+   profiling.trace: one trace file whose CUDA kernel events include
+   fake_quant. Phases 42-45 run under TOOLS_LIMIT_S.
 
 It imports nothing of JAX. Standard output ends with a JSON line of
 details, a JSON line of the kernels, the nvidia-smi line, the total
@@ -4307,6 +4339,402 @@ def parallel_phases(torch):
                 capture_in_off=cap_flips, backend=res[0]["backend"])
 
 
+# ---------------------------------------------------------------------------
+# FP training, sweep and profiling (phases 42-45)
+# ---------------------------------------------------------------------------
+
+TOOLS_LIMIT_S = 150              # phases 42-45 together
+TRAIN_ARCH = "resnet18"          # CIFAR variant: published widths 64-512
+TRAIN_STEPS = 300
+TRAIN_BATCH = 256
+TRAIN_CHUNK = 100
+TRAIN_LR = 0.1
+TRAIN_TOP1_GATE = 30.0           # held-out top-1 %, 3x chance
+PAR_STEPS = 3                    # phase 43: card vs CPU, three steps
+PAR_BATCH = 16
+TRAIN_LOSS_RTOL = 1e-4           # each step's loss, card vs CPU
+TRAIN_PARAM_RTOL = 1e-3          # final params, and BN running stats:
+#                                  relative L2 over each set
+GRAD_F64_RTOL = 1e-2             # the card's f32 gradient vs float64: the
+#   f32 backward of a train-mode BN net loses ~1e-3 to the convs'
+#   algorithms (phase 43 prints the card's and the CPU's); TF32 rounds a
+#   conv's output hundreds of times coarser than f32 (phase 45)
+# phase 44: the port's CLI (brecq, phase 27's flags cut) from phase 42's
+# trained checkpoint, over a two-combo grid
+SWEEP_BASE = ["--arch", "resnet18", "--dataset", "synth10", "--mode",
+              "brecq", "--n_bits_a", "4", "--iters_w", "40", "--iters_a",
+              "20", "--num_samples", "64"]
+SWEEP_GRID = "n_bits_w=2,4"
+PROFILE_INNER = 20               # phase 45: launches timed per node
+# phase 45's roofline shares count a conv's direct multiply-adds against
+# the f32 FMA peak, but cuDNN's f32 3x3 convs (TF32 off, f32 accuracy)
+# run algorithms with fewer multiplies and beat that peak (phase 45
+# prints one: layer3.1's conv); Winograd F(4x4, 3x3) does 4x fewer
+# multiplies, so a share above 4 is a timing that missed the work.
+PROFILE_ROOF_MAX = 4.0
+F32_CONV_RTOL = 1e-5             # that conv vs float64: TF32 is off
+
+
+def live_children():
+    """PIDs of this process's children that are still running or unreaped
+    (/proc/<pid>/task/*/children)."""
+    import glob
+    pids = []
+    for path in glob.glob(f"/proc/{os.getpid()}/task/*/children"):
+        with open(path) as f:
+            pids += f.read().split()
+    return pids
+
+
+def _to(raw, dev):
+    return {n: {k: ({s: t.to(dev) for s, t in v.items()} if k == "bn"
+                    else v.to(dev)) for k, v in p.items()}
+            for n, p in raw.items()}
+
+
+def _flat(torch, raw, stats):
+    """raw params as one float64 CPU vector: the trainable tensors, or
+    with ``stats`` the BN running stats."""
+    parts = []
+    for p in raw.values():
+        ts = [p["bn"][k] for k in ("mean", "var")] if stats and "bn" in p \
+            else [] if stats else [p["w"], *([p["b"]] if "b" in p else []),
+                                   *([p["bn"]["gamma"], p["bn"]["beta"]]
+                                     if "bn" in p else [])]
+        parts += [t.detach().double().cpu().reshape(-1) for t in ts]
+    return torch.cat(parts)
+
+
+def _rel_l2(torch, a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _tensor_worst(torch, got, want):
+    """(worst per-tensor relative L2, 'unit/key/stat') of two raw dicts."""
+    return max((_rel_l2(torch, got[n]["bn"][s] if k == "bn" else got[n][k],
+                        want[n]["bn"][s] if k == "bn" else want[n][k]),
+                f"{n}/{k}/{s}")
+               for n in want for k in want[n]
+               for s in (want[n]["bn"] if k == "bn" else [""]))
+
+
+def train_phase(torch, train, graph, raw_cpu):
+    """Phase 42: train_model on the card, full width. Returns the trained
+    raw params, its held-out top-1 and what the result line reports."""
+    from shiftedscalequantization_tpu_torch.data.realdata import \
+        synth10_test_arrays
+    t0 = time.perf_counter()
+    seen = []
+
+    def log(line):
+        seen.append((time.perf_counter(), line))
+
+    data_fn = train.make_data_fn("synth10", TRAIN_BATCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    trained = train.train_model(graph, raw_cpu, data_fn, TRAIN_STEPS,
+                                TRAIN_LR, gen, chunk=TRAIN_CHUNK, log=log,
+                                device=DEVICE)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    chunks = []
+    prev = start
+    for t, line in seen:
+        f = line.split()
+        chunks.append(dict(step=int(f[1].split("/")[0]), loss=float(f[3]),
+                           train_acc=float(f[5].rstrip("%")),
+                           steps_per_s=TRAIN_CHUNK / (t - prev)))
+        prev = t
+    x_te, y_te = synth10_test_arrays()
+    top1 = train.eval_accuracy(graph, *train.split_params(trained), x_te,
+                               y_te, device=DEVICE)
+    steps_per_s = len(chunks) * TRAIN_CHUNK / secs
+    print(f"  train {TRAIN_ARCH} (CIFAR variant, widths 64-512) on synth10 "
+          f"drawn on the card, batch {TRAIN_BATCH}, {TRAIN_STEPS} steps, lr "
+          f"{TRAIN_LR}, f32 with TF32 off: {secs:.2f} s, {steps_per_s:.2f} "
+          f"steps/s, {steps_per_s * TRAIN_BATCH:.1f} images/s (chunks: "
+          + "; ".join(f"to step {c['step']} loss {c['loss']} train-acc "
+                      f"{c['train_acc']}% {c['steps_per_s']:.2f} steps/s"
+                      for c in chunks)
+          + f"); held-out top-1 {top1:.4f}% on {len(y_te)} images (gate >= "
+          f"{TRAIN_TOP1_GATE})", flush=True)
+    if len(chunks) != math.ceil(TRAIN_STEPS / TRAIN_CHUNK) \
+            or not all(math.isfinite(c["loss"]) for c in chunks):
+        raise AssertionError(f"train: chunks {chunks}")
+    if not chunks[-1]["loss"] < chunks[0]["loss"]:
+        raise AssertionError(f"train: last chunk's loss {chunks[-1]['loss']}"
+                             f" not below the first's {chunks[0]['loss']}")
+    if not top1 >= TRAIN_TOP1_GATE:
+        raise AssertionError(f"train: held-out top-1 {top1}")
+    phase("train", t0)
+    return trained, top1, dict(seconds=secs, steps_per_s=steps_per_s,
+                               images_per_s=steps_per_s * TRAIN_BATCH,
+                               chunks=chunks, top1=top1, images=len(y_te))
+
+
+def _grads(torch, train, graph, raw_cpu, x, y, dev, dtype):
+    """The trainer's loss gradient at ``raw_cpu`` on (x, y), computed on
+    ``dev`` in ``dtype``, as one float64 CPU vector."""
+    from shiftedscalequantization_tpu_torch.graph import _fp32
+    trainable, bn = train.split_params(raw_cpu)
+    trainable = {n: {k: v.to(dev, dtype, copy=True).requires_grad_()
+                     for k, v in p.items()} for n, p in trainable.items()}
+    bn = {n: {k: v.to(dev, dtype) for k, v in p.items()}
+          for n, p in bn.items()}
+    with _fp32():
+        logits, _ = train.forward_train(graph, trainable, bn,
+                                        x.to(dev, dtype), True)
+        train.smoothed_cross_entropy(logits, y.to(dev)).backward()
+    return torch.cat([v.grad.double().cpu().reshape(-1)
+                      for p in trainable.values() for v in p.values()])
+
+
+def train_parity_phase(torch, train, graph, raw_cpu, trained, top1, tmp):
+    """Phase 43: the first PAR_STEPS steps of phase 42's schedule from the
+    same initial params on fixed CPU-drawn batches, on the card and on
+    the CPU; the first batch's gradient in f32 on each against float64 on
+    the card; then phase 42's params through save_raw_params /
+    load_raw_params and eval_accuracy again. Returns the npz path and
+    what the result line reports."""
+    from shiftedscalequantization_tpu_torch.data.realdata import \
+        synth10_draws, synth10_render, synth10_test_arrays
+    t0 = time.perf_counter()
+    batches = [synth10_render(synth10_draws(PAR_BATCH, seed=100 + i))
+               for i in range(PAR_STEPS)]
+    runs, secs = {}, {}
+    for dev in (DEVICE, "cpu"):
+        t = time.perf_counter()
+        trainable, bn = train.split_params(_to(raw_cpu, dev))
+        trainable = {n: {k: v.clone().requires_grad_() for k, v in p.items()}
+                     for n, p in trainable.items()}
+        opt, sched = train.make_optimizer(trainable, TRAIN_LR, TRAIN_STEPS)
+        losses = []
+        for x, y in batches:
+            bn, loss, _ = train.train_step(graph, trainable, bn, opt, sched,
+                                           x.to(dev), y.to(dev))
+            losses.append(float(loss))
+        runs[dev] = (losses, train.merge_params(trainable, bn))
+        secs[dev] = time.perf_counter() - t
+    (lc, pc), (lh, ph) = runs[DEVICE], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    flat0 = _flat(torch, raw_cpu, False)
+    param_rel = _rel_l2(torch, _flat(torch, pc, False),
+                        _flat(torch, ph, False))
+    update_rel = _rel_l2(torch, _flat(torch, pc, False) - flat0,
+                         _flat(torch, ph, False) - flat0)
+    stats_rel = _rel_l2(torch, _flat(torch, pc, True), _flat(torch, ph, True))
+    worst = _tensor_worst(torch, pc, ph)
+    x, y = batches[0]
+    g64 = _grads(torch, train, graph, raw_cpu, x, y, DEVICE, torch.float64)
+    grad_rel = {dev: _rel_l2(torch, _grads(torch, train, graph, raw_cpu, x,
+                                           y, dev, torch.float32), g64)
+                for dev in (DEVICE, "cpu")}
+    path = os.path.join(tmp, "trained_resnet18_synth10.npz")
+    train.save_raw_params(path, trained)
+    back = train.load_raw_params(path, device=DEVICE)
+    x_te, y_te = synth10_test_arrays()
+    top1_back = train.eval_accuracy(graph, *train.split_params(back), x_te,
+                                    y_te, device=DEVICE)
+    print(f"  card vs CPU ({torch.get_num_threads()} threads), the first "
+          f"{PAR_STEPS} steps of phase 42's schedule at batch {PAR_BATCH}: "
+          f"losses card {lc} CPU {lh}, worst rel {loss_rel:.3e} (gate "
+          f"{TRAIN_LOSS_RTOL:g}); final params rel L2 {param_rel:.3e}, BN "
+          f"running stats {stats_rel:.3e} (gate {TRAIN_PARAM_RTOL:g} each); "
+          f"the updates {update_rel:.3e}; worst tensor {worst[0]:.3e} at "
+          f"{worst[1]}; the first gradient in f32 against float64 on the "
+          f"card: card {grad_rel[DEVICE]:.3e} (gate {GRAD_F64_RTOL:g}), CPU "
+          f"{grad_rel['cpu']:.3e}; seconds: card {secs[DEVICE]:.2f}, CPU "
+          f"{secs['cpu']:.2f}; saved and reloaded ({os.path.getsize(path)} "
+          f"bytes): top-1 {top1_back:.4f} (phase 42 {top1:.4f})", flush=True)
+    if not (loss_rel <= TRAIN_LOSS_RTOL and param_rel <= TRAIN_PARAM_RTOL
+            and stats_rel <= TRAIN_PARAM_RTOL
+            and grad_rel[DEVICE] <= GRAD_F64_RTOL):
+        raise AssertionError(f"train card vs CPU: loss {loss_rel}, params "
+                             f"{param_rel}, BN stats {stats_rel}, gradient "
+                             f"vs f64 {grad_rel}")
+    if top1_back != top1:
+        raise AssertionError(f"reloaded top-1 {top1_back} != {top1}")
+    phase("train parity", t0)
+    return path, dict(losses_card=lc, losses_cpu=lh, loss_rel=loss_rel,
+                      param_rel_l2=param_rel, update_rel_l2=update_rel,
+                      bn_stats_rel_l2=stats_rel, worst_tensor=worst,
+                      grad_f32_vs_f64={"card": grad_rel[DEVICE],
+                                       "cpu": grad_rel["cpu"]},
+                      cpu_threads=torch.get_num_threads(),
+                      card_s=secs[DEVICE], cpu_s=secs["cpu"],
+                      reloaded_top1=top1_back)
+
+
+def sweep_phase(npz, tmp):
+    """Phase 44: utils.sweep.main over SWEEP_GRID on the port's CLI from
+    phase 43's checkpoint; then the same call again, which runs nothing.
+    The sweep logs a failed run as an error record and goes on, so the
+    records are the gate."""
+    from shiftedscalequantization_tpu_torch.utils import sweep
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "sweep.jsonl")
+    base = " ".join(SWEEP_BASE + [
+        "--pretrained", npz, "--checkpoint_dir", os.path.join(tmp, "ckpt"),
+        "--log_path", os.path.join(tmp, "cli.log")])
+    argv = ["--base", base, "--grid", SWEEP_GRID, "--out", out]
+    print(f"  sweep: python -m shiftedscalequantization_tpu_torch.utils.sweep"
+          f" {' '.join(repr(a) if ' ' in a else a for a in argv)}",
+          flush=True)
+    import io
+    cli_out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(cli_out):
+        recs = sweep.main(argv)
+    launches = counts()
+    with open(out) as f:
+        logged = [json.loads(line) for line in f]
+    again = sweep.main(argv)
+    print(f"  sweep records {recs}; fake_quant launches "
+          f"{ {k: v for k, v in launches.items() if v} }; the same call "
+          f"again ran {len(again)}", flush=True)
+    top1s = [r.get("result", {}).get("top1") for r in recs]
+    if len(recs) != 2 or logged != recs or any("error" in r for r in recs) \
+            or not all(isinstance(t, float) and math.isfinite(t)
+                       for t in top1s):
+        raise AssertionError(f"sweep records {recs}\n"
+                             f"{cli_out.getvalue()[-4000:]}")
+    if not launches["fake_quant_act"] > 0 or again:
+        raise AssertionError(f"sweep: launches {launches}, rerun {again}")
+    phase("sweep", t0)
+    return dict(records=recs, launches={k: v for k, v in launches.items()
+                                        if v}, rerun=len(again))
+
+
+def profiling_phase(torch, recon_sim_ms, tmp):
+    """Phase 45: profiling.layer_timing on ImageNet ResNet-18 W2A4, the
+    sim forward with weights and act sites on, batch 256, graph_flops
+    beside; one sim forward under profiling.trace."""
+    import glob
+    from shiftedscalequantization_tpu_torch import quantize as Q
+    from shiftedscalequantization_tpu_torch.graph import Flags, _fp32, \
+        conv2d, forward
+    from shiftedscalequantization_tpu_torch.models import zoo
+    from shiftedscalequantization_tpu_torch.utils import profiling
+    t0 = time.perf_counter()
+    graph, _ = zoo.build("resnet18", dataset="imagenet")
+    cfg = Q.QuantConfig(n_bits_w=2, n_bits_a=4)
+    gen = torch.Generator(device=DEVICE).manual_seed(45)
+    params, qs = Q.prepare_model(
+        graph, zoo.init_params(graph, seed=45, device=DEVICE), cfg,
+        device=DEVICE)
+    qs = Q.calibrate_acts(graph, params, qs, torch.randn(
+        (16, HW, HW, 3), generator=gen, device=DEVICE), cfg, device=DEVICE)
+    flags = Q.act_flags(graph, cfg, base=Flags().all_weights(graph))
+    x = torch.randn((BATCH, HW, HW, 3), generator=gen, device=DEVICE)
+    reset_counts()
+    rows = profiling.layer_timing(graph, params, qs, x, flags,
+                                  peak_flops=F32_FLOPS, inner=PROFILE_INNER,
+                                  device=DEVICE)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in counts().items() if v}
+    total, per = profiling.graph_flops(graph, (HW, HW), BATCH)
+    whole_ms = time_cuda(lambda: forward(graph, params, qs, x, flags,
+                                         device=DEVICE), iters=3, warmup=1)
+    rows_ms = sum(r["ms"] for r in rows)
+    print(profiling.format_timing(rows), flush=True)
+    print(f"  layer_timing: {len(rows)} nodes, inner {PROFILE_INNER}, "
+          f"roofline against {F32_FLOPS:g} FLOP/s (H100 SXM f32 outside "
+          f"the tensor cores, NVIDIA's data sheet; apply_node runs f32 with "
+          f"TF32 off); sum of rows {rows_ms:.3f} ms, this state's whole sim "
+          f"forward {whole_ms:.3f} ms, phase 19's {recon_sim_ms:.3f} ms; "
+          f"graph_flops {total / 1e9:.2f} GFLOP, rows "
+          f"{sum(r['gflop'] for r in rows):.2f}; launches {launches}",
+          flush=True)
+    # one f32 3x3 conv at layer3.1's shape through the graph's conv2d,
+    # TF32 off: its rate against the f32 peak and its error against f64
+    cx = torch.randn((BATCH, 14, 14, 256), generator=gen, device=DEVICE)
+    cw = torch.randn((256, 256, 3, 3), generator=gen, device=DEVICE) \
+        * math.sqrt(2 / 2304)
+    with _fp32():
+        conv_ms = time_cuda(lambda: conv2d(cx, cw, None, (1, 1), (1, 1), 1))
+        conv_out = conv2d(cx, cw, None, (1, 1), (1, 1), 1)
+    conv_ref = conv2d(cx.double(), cw.double(), None, (1, 1), (1, 1), 1)
+    conv_err = _rel_l2(torch, conv_out, conv_ref)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True       # a reading beside it
+    try:
+        tf32_ms = time_cuda(lambda: conv2d(cx, cw, None, (1, 1), (1, 1), 1))
+        tf32_err = _rel_l2(torch, conv2d(cx, cw, None, (1, 1), (1, 1), 1),
+                           conv_ref)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    conv_flop = 2 * BATCH * 14 * 14 * 256 * 256 * 9
+    conv_tflops = conv_flop / conv_ms / 1e9
+    print(f"  f32 3x3 conv at layer3.1's shape (cuDNN, TF32 off): "
+          f"{conv_ms:.4f} ms, {conv_tflops:.1f} TFLOP/s of direct "
+          f"multiply-adds ({conv_tflops * 1e12 / F32_FLOPS:.3f} of the f32 "
+          f"peak), rel. error vs float64 {conv_err:.3e} (gate "
+          f"{F32_CONV_RTOL:g}); with TF32 on {tf32_ms:.4f} ms, "
+          f"{conv_flop / tf32_ms / 1e9:.1f} TFLOP/s, error {tf32_err:.3e}",
+          flush=True)
+    if not all(r["ms"] > 0 and math.isfinite(r["ms"])
+               and r["roofline_frac"] <= PROFILE_ROOF_MAX for r in rows):
+        raise AssertionError(f"layer_timing rows {rows}")
+    if not conv_err <= F32_CONV_RTOL:
+        raise AssertionError(f"f32 conv error {conv_err}: TF32 on?")
+    if {r["name"]: r["gflop"] * 1e9 for r in rows} != \
+            {k: float(v) for k, v in per.items()} \
+            or not launches.get("fake_quant_act", 0) > 0:
+        raise AssertionError(f"layer_timing flops or launches: {launches}")
+    logdir = os.path.join(tmp, "trace")
+    with profiling.trace(logdir):
+        forward(graph, params, qs, x, flags, device=DEVICE)
+        torch.cuda.synchronize()
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    kernels = []
+    for path in files:
+        with open(path) as f:
+            kernels += [e["name"] for e in json.load(f)["traceEvents"]
+                        if e.get("cat") == "kernel"]
+    fq = sorted({k for k in kernels if "fake_quant" in k})
+    print(f"  trace: {len(files)} file(s), {sum(map(os.path.getsize, files))}"
+          f" bytes, {len(kernels)} CUDA kernel events, fake_quant kernels "
+          f"{fq} ({sum('fake_quant' in k for k in kernels)} launches)",
+          flush=True)
+    if len(files) != 1 or not fq:
+        raise AssertionError(f"trace: files {files}, kernels "
+                             f"{sorted(set(kernels))[:20]}")
+    phase("profiling", t0)
+    return dict(rows=rows, rows_ms=rows_ms, whole_sim_ms=whole_ms,
+                recon_sim_ms=recon_sim_ms, gflop=total / 1e9,
+                f32_conv={"ms": conv_ms, "tflops": conv_tflops,
+                          "rel_err_vs_f64": conv_err, "tf32_ms": tf32_ms,
+                          "tf32_rel_err_vs_f64": tf32_err},
+                launches=launches, trace_kernel_events=len(kernels),
+                trace_fake_quant=fq)
+
+
+def tools_phases(torch, recon_sim_ms):
+    """Phases 42-45 (see the module doc). Every file goes to a temporary
+    directory. Returns what the result lines report."""
+    import tempfile
+    from shiftedscalequantization_tpu_torch import train
+    from shiftedscalequantization_tpu_torch.models import zoo
+    alive = live_children()
+    print(f"  before phase 42: child processes alive {alive}, process "
+          f"group initialized {torch.distributed.is_initialized()}",
+          flush=True)
+    if alive or torch.distributed.is_initialized():
+        raise AssertionError(f"processes {alive} or a process group left")
+    tmp = tempfile.TemporaryDirectory()
+    graph, _ = zoo.build(TRAIN_ARCH, num_classes=10, dataset="cifar10")
+    raw_cpu = zoo.init_params(graph, seed=0, device="cpu")
+    trained, top1, tr = train_phase(torch, train, graph, raw_cpu)
+    npz, par = train_parity_phase(torch, train, graph, raw_cpu, trained,
+                                  top1, tmp.name)
+    sw = sweep_phase(npz, tmp.name)
+    prof = profiling_phase(torch, recon_sim_ms, tmp.name)
+    tmp.cleanup()
+    return dict(train=tr, train_parity=par, sweep=sw, profiling=prof)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4657,6 +5085,10 @@ def main():
     # ---- data-parallel calibration and reconstruction, two ranks -------
     with time_limit("parallel", PAR_LIMIT_S):
         par = parallel_phases(torch)
+
+    # ---- FP training, the sweep and profiling -------------------------
+    with time_limit("training and tools", TOOLS_LIMIT_S):
+        tools = tools_phases(torch, res["sim_ms"])
     r50_served = r50["served"]
     unfused.update({k: r["unfused"] for k, r in r50_served.items()})
 
@@ -4806,6 +5238,10 @@ def main():
          # each rank of phases 38-41 (synced calibration, sharded
          # capture, sharded validation), act sites
          "launches_parallel": par["launches"],
+         # the sweep's two CLI runs (phase 44) and layer_timing's sim
+         # nodes (phase 45, PROFILE_INNER + 1 calls a node)
+         "launches_tools": {"sweep": tools["sweep"]["launches"],
+                            "layer_timing": tools["profiling"]["launches"]},
          "max_abs_err": max(r["err"] for r in fq_rows),
          "ms": per_forward(fq_rows, "ms"),
          "plain_ms": per_forward(fq_rows, "plain_ms"),
@@ -4999,7 +5435,8 @@ def main():
                       "resnet50_packed_shapes": r50["packed_rows"],
                       "native_loader": native,
                       "resnet50_cli": r50_cli,
-                      "parallel": par}),
+                      "parallel": par,
+                      "tools": tools}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

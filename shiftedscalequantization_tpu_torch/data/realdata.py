@@ -63,17 +63,22 @@ _SHAPE_OF_CLASS = (0, 1, 2, 3, 4, 0, 1, 5, 6, 4)
 _STRIPED_CLASS = (0., 0., 0., 0., 0., 1., 1., 0., 0., 1.)
 
 
-def synth10_draws(n: int, size: int = 32, seed: int = 0):
-    """Every random number of a batch of ``n`` samples, drawn on the CPU in
-    the JAX package's order (its keys ks[0]..ks[12]): labels, centre,
-    scale, the two rotations, stripe phase, foreground colour, background
-    frequencies and phases, pixel noise."""
-    g = torch.Generator().manual_seed(seed)
+def synth10_draws(n: int, size: int = 32, seed: int = 0,
+                  generator: torch.Generator | None = None):
+    """Every random number of a batch of ``n`` samples, in the JAX
+    package's order (its keys ks[0]..ks[12]): labels, centre, scale, the
+    two rotations, stripe phase, foreground colour, background frequencies
+    and phases, pixel noise. Drawn from ``generator``, on its device (a
+    training step draws on the card), else from a CPU generator seeded
+    with ``seed``."""
+    g = generator if generator is not None \
+        else torch.Generator().manual_seed(seed)
+    dev = g.device
 
     def u(lo, hi, shape=(n, 1, 1)):
-        return lo + (hi - lo) * torch.rand(shape, generator=g)
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
 
-    y = torch.randint(0, 10, (n,), generator=g)
+    y = torch.randint(0, 10, (n,), generator=g, device=dev)
     cx, cy = u(-5, 5), u(-5, 5)
     scale = u(0.75, 1.25)
     rot_full = u(0.0, 2 * math.pi)
@@ -82,7 +87,7 @@ def synth10_draws(n: int, size: int = 32, seed: int = 0):
     fg = u(0.45, 1.0, (n, 1, 1, 3))
     f1, f2 = u(0.1, 0.5), u(0.1, 0.5)
     p1, p2 = u(0, 2 * math.pi), u(0, 2 * math.pi)
-    noise = torch.randn((n, size, size, 3), generator=g)
+    noise = torch.randn((n, size, size, 3), generator=g, device=dev)
     return dict(y=y, cx=cx, cy=cy, scale=scale, rot_full=rot_full,
                 rot_lim=rot_lim, phase=phase, fg=fg, f1=f1, f2=f2, p1=p1,
                 p2=p2, noise=noise)

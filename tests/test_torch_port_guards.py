@@ -15,7 +15,7 @@ from shiftedscalequantization_tpu_torch.utils import jax_import as JI
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "shiftedscalequantization_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "shiftedscalequantization_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "shiftedscalequantization_tpu")
 
 
 def _imports(path):
@@ -38,7 +38,8 @@ def test_port_and_smoke_script_import_no_jax():
                 "ops/act_quant.py", "recon/search.py", "models/mnasnet.py",
                 "ops/cuda/dw_conv.py", "parallel/__init__.py",
                 "parallel/mesh.py", "parallel/collectives.py",
-                "parallel/dist.py"):
+                "parallel/dist.py", "utils/profiling.py",
+                "utils/analysis.py", "utils/sweep.py"):
         assert PORT / new in files, new
     for path in files:
         for name in _imports(path):
@@ -100,6 +101,30 @@ def test_entry_points_without_a_card_raise(no_card):
     # the CLI without --platform cpu (default auto: the card)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--dataset", "cifar10", "--synthetic_data", "true"])
+
+
+def test_trainer_and_profiler_without_a_card_raise(no_card, tmp_path):
+    """``train.main`` (default --platform auto: cuda:0), ``train_model``,
+    ``eval_accuracy`` and ``profiling.layer_timing`` run on the card
+    unless asked for the CPU."""
+    from shiftedscalequantization_tpu_torch import train
+    from shiftedscalequantization_tpu_torch.utils import profiling
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1", "--out", str(tmp_path / "t.npz")])
+    assert not (tmp_path / "t.npz").exists()
+    graph, _ = TZ.build("resnet18", num_classes=10, dataset="cifar10")
+    raw = TZ.init_params(graph, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train_model(graph, raw, None, 1, 0.1, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.eval_accuracy(graph, *train.split_params(raw),
+                            np.zeros((1, 32, 32, 3), np.float32),
+                            np.zeros(1, np.int32))
+    cfg = tp.QuantConfig(w_scale_method="max", a_scale_method="max")
+    params, qs = tp.prepare_model(graph, raw, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profiling.layer_timing(graph, params, qs,
+                               np.zeros((1, 32, 32, 3), np.float32))
 
 
 PARALLEL_ENTRIES = ("init_multihost", "sharded_validate", "sharded_capture",

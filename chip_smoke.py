@@ -115,10 +115,10 @@ non-zero exit and no result line:
    on ImageNet ResNet-18 W2A4 at full width (224x224, 1000 classes,
    seeded synthetic data: 512 train and 256 test images, random init),
    with the checkpoints, logs and golden logits in a temporary directory
-   (CLI_RUNS): --mode fused (200 steps a target, 256 calibration rows,
-   the per-target validation on), --mode brecq (128 rows, 200 steps, then
-   the act-delta phase at 200 steps on every target) and --mode two_phase
-   (128 rows, 100 + 200 steps, targets {1/2, 1}); per run its wall
+   (CLI_RUNS): --mode fused (100 steps a target, 256 calibration rows,
+   the per-target validation on), --mode brecq (128 rows, 100 steps, then
+   the act-delta phase at 100 steps on every target) and --mode two_phase
+   (128 rows, 50 + 100 steps, targets {1/2, 1}); per run its wall
    seconds, the
    CLI's own lines, the fake_quant act and weight launches counted during
    the run (counters reset just before it), the hard losses and the final
@@ -166,9 +166,10 @@ non-zero exit and no result line:
    (offset 128 for the int8_pair units), then served and gated as in
    24-25 (19 int8_conv launches, no requant left);
 27. regnet cli: the port's CLI on the trained RegNetX-600M (CIFAR
-   variant, synth10), REGNET_CLI_COMMON with --mode brecq and then
+   variant, synth10), REGNET_CLI_COMMON with --mode brecq and with
    --mode fused (at 100 weight steps: REGNET_CLI_MODES), each in its own
-   process under REGNET_CLI_TIMEOUT_S;
+   process under REGNET_CLI_TIMEOUT_S, both started at once (each run
+   is host-bound, and two share the card);
    FP top-1, top-1 after each target, final top-1 and the deploy top-1
    of the final state on the 2048 test images, beside
    ACCURACY_regnet_r4.md; gates: FP top-1 equals the port CLI's on the
@@ -241,7 +242,8 @@ non-zero exit and no result line:
 33. mnasnet cli: the port's CLI on the trained MNASNet (CIFAR variant,
    synth10), MNASNET_CLI_COMMON (brecq W2A4) without and with
    --harmonize_residual, each in its own process under
-   MNASNET_CLI_TIMEOUT_S, each final state served under SSQ_DW_KERNEL=1
+   MNASNET_CLI_TIMEOUT_S, both started at once, each
+   final state served under SSQ_DW_KERNEL=1
    SSQ_PACKED=1 on the 2048 test images; gates: FP top-1 equals the port
    CLI's on the CPU (MNASNET_CPU_FP_TOP1), all 52 targets done, final
    (sim) top-1 at least FP - REGNET_FINAL_DROP, deploy within 0.5 points
@@ -342,7 +344,32 @@ non-zero exit and no result line:
    each row's flops graph_flops', fake_quant_act launched, the conv
    within F32_CONV_RTOL of float64 (TF32 off); one sim forward under
    profiling.trace: one trace file whose CUDA kernel events include
-   fake_quant. Phases 42-45 run under TOOLS_LIMIT_S.
+   fake_quant. Phases 42-45 run under TOOLS_LIMIT_S;
+46. run_accuracy: ``scripts.run_accuracy`` in this process, in
+   a temporary working directory holding phase 42's npz as
+   trained_resnet18_synth10.npz (RUN_ACCURACY_ARGS: brecq W2A4, 100 + 50
+   steps; not --quick, which skips the deploy rows); gates: the markdown
+   table written with its deploy section, a finite final top-1, the
+   2-pass and 1-pass stem deploy each within SCRIPT_DEPLOY_GAP top-1
+   points of sim on the 2048 test images, int8_conv launched;
+47. advantage_demo: ``scripts.advantage_demo`` on the same npz
+   (ADVANTAGE_ARGS: synth10, three arms at 100 + 50 steps); each arm's
+   final top-1 and its selection's match with the planted imbalance
+   printed; then aggregate_advantage.py on its JSON record in a process
+   of its own; gates: FP parity of the planted npz below
+   ADVANTAGE_FP_RTOL, every arm a finite final top-1, a match fraction
+   per block for the fused and two-phase arms, the aggregate table
+   printed (exit 0), fake_quant launched;
+48. imagenet_drill: ``scripts.imagenet_drill --quick`` (a flat ImageNet
+   ResNet-18 .pth.tar drawn with numpy and 480 JPEG files, 4 + 4 steps,
+   64 rows), then its --eval_only replay; the loaders it used printed;
+   gates: the replay's golden-logit MSE <= DRILL_MSE_GATE, a finite final
+   top-1, fake_quant launched;
+49. harm_accuracy: ``scripts.harm_accuracy`` (HARM_ARGS) on the trained
+   MNASNet, without and with --harmonize_residual; gates: the harmonized
+   plan has a chain sum site, each state's deploy within
+   SCRIPT_DEPLOY_GAP of its sim top-1, dw_conv_int8 and int8_conv
+   launched. Phases 46-49 run under SCRIPTS_LIMIT_S.
 
 It imports nothing of JAX. Standard output ends with a JSON line of
 details, a JSON line of the kernels, the nvidia-smi line, the total
@@ -353,6 +380,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -471,6 +499,7 @@ JAX_CLI_FP_TOP1 = 99.8046875
 REGNET_FINAL_DROP = 3.0          # brecq final top-1 >= FP - 3 points
 REGNET_DEPLOY_GAP = 0.5          # |deploy - sim| top-1, points
 _T0 = time.perf_counter()
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def phase(name, t0):
@@ -1855,13 +1884,15 @@ CLI_COMMON = ["--arch", "resnet18", "--dataset", "imagenet",
               "--synthetic_data", "true", "--n_bits_w", "2", "--n_bits_a", "4"]
 # the three CLI runs of phase 20 (ImageNet ResNet-18 W2A4 at full width,
 # synthetic data: 512 train and 256 test images)
+# (halved to make room for phases 46-49; the phase's gates do
+# not depend on the step count)
 CLI_RUNS = [
-    ("fused", ["--mode", "fused", "--iters_w", "200", "--num_samples", "256",
+    ("fused", ["--mode", "fused", "--iters_w", "100", "--num_samples", "256",
                "--batch_size", "64", "--skip_test", "false"]),
-    ("brecq", ["--mode", "brecq", "--iters_w", "200", "--iters_a", "200",
+    ("brecq", ["--mode", "brecq", "--iters_w", "100", "--iters_a", "100",
                "--num_samples", "128", "--batch_size", "64",
                "--skip_test", "true"]),
-    ("two_phase", ["--mode", "two_phase", "--iters_w", "100",
+    ("two_phase", ["--mode", "two_phase", "--iters_w", "50",
                    "--num_samples", "128", "--shift_targets", "0.5,1.0",
                    "--skip_test", "true"]),
 ]
@@ -2511,6 +2542,55 @@ def _cli_dict(line):
     return ast.literal_eval(line[line.index("{"):line.index("}") + 1])
 
 
+def cli_processes(argvs, root, env, timeout, label):
+    """The port's CLI once per {name: argv}, every process started at once
+    (each run is host-bound: two share the card at about the speed of
+    one), each under ``timeout`` seconds from its start; every process is
+    stopped if one fails. Returns {name: (stdout, its wall seconds)}."""
+    import tempfile
+    logs = tempfile.TemporaryDirectory()
+    procs = {}
+    for name, argv in argvs.items():
+        print(f"  {label} {name}: python -m "
+              f"shiftedscalequantization_tpu_torch.cli {' '.join(argv)}",
+              flush=True)
+        out = open(os.path.join(logs.name, f"{name}.out"), "w+")
+        err = open(os.path.join(logs.name, f"{name}.err"), "w+")
+        procs[name] = (time.perf_counter(), out, err, subprocess.Popen(
+            [sys.executable, "-m", "shiftedscalequantization_tpu_torch.cli",
+             *argv], cwd=root, env=env, stdout=out, stderr=err, text=True))
+    done = {}
+    try:
+        while len(done) < len(procs):
+            for name, (t, out, err, proc) in procs.items():
+                if name in done:
+                    continue
+                wall = time.perf_counter() - t
+                if proc.poll() is None:
+                    if wall > timeout:
+                        raise AssertionError(f"{label} {name}: over its "
+                                             f"{timeout} s limit")
+                    continue
+                out.seek(0)
+                err.seek(0)
+                text = out.read()
+                if proc.returncode != 0:
+                    raise AssertionError(
+                        f"{label} {name}: exit {proc.returncode}\n"
+                        f"{text[-4000:]}\n{err.read()[-4000:]}")
+                done[name] = (text, wall)
+            time.sleep(0.5)
+    finally:
+        for _, out, err, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            out.close()
+            err.close()
+        logs.cleanup()
+    return done
+
+
 def regnet_cli_phases(torch):
     """Phase 27: the port's CLI on the trained RegNetX-600M, brecq then
     fused, each in its own process under REGNET_CLI_TIMEOUT_S; then each
@@ -2534,25 +2614,16 @@ def regnet_cli_phases(torch):
     runs = {}
     common = [os.path.join(root, a) if a.endswith(".npz") else a
               for a in REGNET_CLI_COMMON]
-    for mode, extra in REGNET_CLI_MODES.items():
-        argv = common + extra + [
-            "--mode", mode, "--checkpoint_dir", os.path.join(tmp.name, mode),
-            "--log_path", os.path.join(tmp.name, f"{mode}.log")]
-        print(f"  regnet cli {mode}: python -m "
-              f"shiftedscalequantization_tpu_torch.cli {' '.join(argv)}",
-              flush=True)
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "shiftedscalequantization_tpu_torch.cli",
-             *argv], cwd=root, env=env, capture_output=True, text=True,
-            timeout=REGNET_CLI_TIMEOUT_S)
-        wall = time.perf_counter() - t
-        if proc.returncode != 0:
-            raise AssertionError(f"regnet cli {mode}: exit "
-                                 f"{proc.returncode}\n{proc.stdout[-4000:]}"
-                                 f"\n{proc.stderr[-4000:]}")
+    argvs = {mode: common + extra + [
+        "--mode", mode, "--checkpoint_dir", os.path.join(tmp.name, mode),
+        "--log_path", os.path.join(tmp.name, f"{mode}.log")]
+        for mode, extra in REGNET_CLI_MODES.items()}
+    outs = cli_processes(argvs, root, env, REGNET_CLI_TIMEOUT_S,
+                         "regnet cli")
+    for mode, argv in argvs.items():
+        stdout, wall = outs[mode]
         fp, per, final = None, {}, None
-        for line in proc.stdout.splitlines():
+        for line in stdout.splitlines():
             if line.startswith("accuracy of FP model:"):
                 fp = _cli_dict(line)["top1"]
             elif line.startswith("accuracy of qnn_hard "):
@@ -3491,27 +3562,17 @@ def mnasnet_cli_phases(torch):
     common = [os.path.join(root, a) if a.endswith(".npz") else a
               for a in MNASNET_CLI_COMMON]
     runs = {}
-    for harm in ("false", "true"):
-        name = "harmonized" if harm == "true" else "plain"
-        argv = common + [
-            "--harmonize_residual", harm,
-            "--checkpoint_dir", os.path.join(tmp.name, name),
-            "--log_path", os.path.join(tmp.name, f"{name}.log")]
-        print(f"  mnasnet cli {name}: python -m "
-              f"shiftedscalequantization_tpu_torch.cli {' '.join(argv)}",
-              flush=True)
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "shiftedscalequantization_tpu_torch.cli",
-             *argv], cwd=root, env=env, capture_output=True, text=True,
-            timeout=MNASNET_CLI_TIMEOUT_S)
-        wall = time.perf_counter() - t
-        if proc.returncode != 0:
-            raise AssertionError(f"mnasnet cli {name}: exit "
-                                 f"{proc.returncode}\n{proc.stdout[-4000:]}"
-                                 f"\n{proc.stderr[-4000:]}")
+    argvs = {name: common + [
+        "--harmonize_residual", harm,
+        "--checkpoint_dir", os.path.join(tmp.name, name),
+        "--log_path", os.path.join(tmp.name, f"{name}.log")]
+        for name, harm in (("plain", "false"), ("harmonized", "true"))}
+    outs = cli_processes(argvs, root, env, MNASNET_CLI_TIMEOUT_S,
+                         "mnasnet cli")
+    for name, argv in argvs.items():
+        stdout, wall = outs[name]
         final, harmonized = None, None
-        for line in proc.stdout.splitlines():
+        for line in stdout.splitlines():
             if line.startswith("Final W"):
                 final = _cli_dict(line)["top1"]
             elif line.startswith("harmonized "):
@@ -3621,40 +3682,13 @@ def r50_key(state, env):
     return f"resnet50_{state}_{env.replace('+', '_')}"
 
 
-def torchvision_state_dict(torch, graph, key_map, seed=0):
-    """A torchvision-layout state dict for ``graph`` drawn with numpy:
-    He-normal conv and linear weights, zero linear bias, BN affine and
-    running statistics near identity, the num_batches_tracked counters
-    the importers ignore."""
-    import numpy as np
-    from shiftedscalequantization_tpu_torch.graph import iter_units
-    rng = np.random.default_rng(seed)
-    sd = {}
-    for u in iter_units(graph):
-        conv, bn = key_map[u.name]
-        shape = (u.out_ch, u.in_ch // u.groups, *u.kernel) \
-            if u.kind == "conv" else (u.out_ch, u.in_ch)
-        fan_in = int(np.prod(shape[1:]))
-        sd[f"{conv}.weight"] = torch.as_tensor(
-            rng.standard_normal(shape, dtype=np.float32)
-            * np.float32(np.sqrt(2.0 / fan_in)))
-        c = u.out_ch
-        if bn is None:
-            sd[f"{conv}.bias"] = torch.zeros(c)
-            continue
-        for name, v in (("weight", rng.uniform(0.8, 1.2, c)),
-                        ("bias", rng.normal(0.0, 0.05, c)),
-                        ("running_mean", rng.normal(0.0, 0.05, c)),
-                        ("running_var", rng.uniform(0.8, 1.2, c))):
-            sd[f"{bn}.{name}"] = torch.as_tensor(v.astype(np.float32))
-        sd[f"{bn}.num_batches_tracked"] = torch.tensor(0)
-    return sd
-
-
 def torchvision_checkpoint(torch, graph, key_map, path, seed=0):
-    """torchvision_state_dict saved as a DataParallel training checkpoint,
-    {'state_dict': {'module.<key>': tensor}}, at ``path``."""
-    sd = torchvision_state_dict(torch, graph, key_map, seed)
+    """utils/torch_import.random_state_dict saved as a DataParallel
+    training checkpoint, {'state_dict': {'module.<key>': tensor}}, at
+    ``path``."""
+    from shiftedscalequantization_tpu_torch.utils.torch_import import \
+        random_state_dict
+    sd = random_state_dict(graph, key_map, seed)
     torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
                path)
 
@@ -4711,10 +4745,10 @@ def profiling_phase(torch, recon_sim_ms, tmp):
                 trace_fake_quant=fq)
 
 
-def tools_phases(torch, recon_sim_ms):
-    """Phases 42-45 (see the module doc). Every file goes to a temporary
-    directory. Returns what the result lines report."""
-    import tempfile
+def tools_phases(torch, recon_sim_ms, tmp):
+    """Phases 42-45 (see the module doc). Every file goes to the directory
+    ``tmp``. Returns (what the result lines report, the path of phase
+    42's trained npz)."""
     from shiftedscalequantization_tpu_torch import train
     from shiftedscalequantization_tpu_torch.models import zoo
     alive = live_children()
@@ -4723,16 +4757,199 @@ def tools_phases(torch, recon_sim_ms):
           flush=True)
     if alive or torch.distributed.is_initialized():
         raise AssertionError(f"processes {alive} or a process group left")
-    tmp = tempfile.TemporaryDirectory()
     graph, _ = zoo.build(TRAIN_ARCH, num_classes=10, dataset="cifar10")
     raw_cpu = zoo.init_params(graph, seed=0, device="cpu")
     trained, top1, tr = train_phase(torch, train, graph, raw_cpu)
     npz, par = train_parity_phase(torch, train, graph, raw_cpu, trained,
-                                  top1, tmp.name)
-    sw = sweep_phase(npz, tmp.name)
-    prof = profiling_phase(torch, recon_sim_ms, tmp.name)
+                                  top1, tmp)
+    sw = sweep_phase(npz, tmp)
+    prof = profiling_phase(torch, recon_sim_ms, tmp)
+    return dict(train=tr, train_parity=par, sweep=sw, profiling=prof), npz
+
+
+# ---------------------------------------------------------------------------
+# The accuracy scripts (phases 46-49)
+# ---------------------------------------------------------------------------
+
+SCRIPTS_LIMIT_S = 300            # phases 46-49 together
+SCRIPT_DEPLOY_GAP = 1.0          # |deploy - sim| top-1 points, 2048 images
+# phase 46: not --quick, which skips deploy_eval
+RUN_ACCURACY_ARGS = ["--only", "synth10:brecq:W2A4", "--iters", "100",
+                     "--iters_a", "50"]
+ADVANTAGE_ARGS = ["--dataset", "synth10", "--iters", "100", "--iters_a",
+                  "50", "--arms", "brecq,fused+beta,two_phase"]
+ADVANTAGE_FP_RTOL = 1e-4         # the planted npz's FP logits vs the source
+ADVANTAGE_SELECTING = ("fused+beta", "two_phase")
+DRILL_ARGS = ["--quick"]         # 4 + 4 steps, 64 rows, 480 JPEG files
+DRILL_MSE_GATE = 1e-6            # the replay's golden-logit MSE
+HARM_ARGS = ["--iters", "20", "--iters_a", "10"]
+
+
+@contextlib.contextmanager
+def working_dir(path):
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def _run_script(name, argv):
+    """``scripts.<name>.main(argv)`` in this process: (its result, the
+    kernel launches during it, its seconds)."""
+    import importlib
+    mod = importlib.import_module(
+        f"shiftedscalequantization_tpu_torch.scripts.{name}")
+    print(f"  {name}: python -m shiftedscalequantization_tpu_torch.scripts."
+          f"{name} {' '.join(argv)}", flush=True)
+    _sync()
+    reset_counts()
+    t = time.perf_counter()
+    res = mod.main(argv)
+    _sync()
+    secs = time.perf_counter() - t
+    return res, {k: v for k, v in counts().items() if v}, secs
+
+
+def _top1(final):
+    top1 = final.get("top1") if isinstance(final, dict) else None
+    return top1 if isinstance(top1, float) and math.isfinite(top1) else None
+
+
+def run_accuracy_phase(npz, tmp):
+    """Phase 46: scripts.run_accuracy on phase 42's trained ResNet-18."""
+    t0 = time.perf_counter()
+    shutil.copy(npz, os.path.join(tmp, "trained_resnet18_synth10.npz"))
+    out = os.path.join(tmp, "ACCURACY.md")
+    with working_dir(tmp):
+        res, launches, secs = _run_script(
+            "run_accuracy", RUN_ACCURACY_ARGS + ["--out", out])
+    run, dep = res["runs"][0], res["deploy"]
+    gaps = {k: abs(dep[k] - dep["sim"])
+            for k in ("deploy_2pass", "deploy_1pass")}
+    table = open(out).read() if os.path.exists(out) else ""
+    print(f"  run_accuracy: {secs:.2f} s; FP {run['fp_top1']}, quant-init "
+          f"{run['init_top1']}, final {_top1(run['final'])}; deploy eval "
+          f"{dep} (|deploy - sim| {gaps}, gate {SCRIPT_DEPLOY_GAP}); "
+          f"launches {launches}; table {len(table)} bytes", flush=True)
+    if "| synth10 | brecq | W2A4 |" not in table \
+            or "True-int deploy parity" not in table \
+            or _top1(run["final"]) is None:
+        raise AssertionError(f"run_accuracy: result {res}\n{table}")
+    if not max(gaps.values()) <= SCRIPT_DEPLOY_GAP:
+        raise AssertionError(f"run_accuracy: deploy vs sim {dep}")
+    if not launches.get("int8_conv"):
+        raise AssertionError(f"run_accuracy: launches {launches}")
+    phase("run_accuracy", t0)
+    return dict(seconds=secs, fp_top1=run["fp_top1"],
+                init_top1=run["init_top1"], final_top1=_top1(run["final"]),
+                deploy=dep, launches=launches)
+
+
+def advantage_phase(tmp):
+    """Phase 47: scripts.advantage_demo on the same npz (its source in
+    ``tmp``), then aggregate_advantage.py on its JSON record."""
+    t0 = time.perf_counter()
+    with working_dir(tmp):
+        res, launches, secs = _run_script("advantage_demo",
+                                          ADVANTAGE_ARGS)
+    arms = {r["tag"]: dict(final=_top1(r["final"]),
+                           selection=r.get("selection_vs_planted"))
+            for r in res["runs"]}
+    for a in arms.values():
+        sel = a["selection"]
+        a["match_mean"] = (sum(sel.values()) / len(sel)
+                           if isinstance(sel, dict) and sel else None)
+    record = os.path.join(tmp, "torch_logs", "advantage_demo.json")
+    agg = subprocess.run(
+        [sys.executable, os.path.join(REPO, "aggregate_advantage.py"),
+         record], capture_output=True, text=True, timeout=120)
+    print(f"  advantage_demo: {secs:.2f} s; FP parity {res['fp_rel']:.3e} "
+          f"(gate {ADVANTAGE_FP_RTOL:g}); arms {arms}; launches {launches}; "
+          f"aggregate_advantage.py exit {agg.returncode}:\n{agg.stdout}"
+          f"{agg.stderr}", flush=True)
+    want = ADVANTAGE_ARGS[ADVANTAGE_ARGS.index("--arms") + 1].split(",")
+    if not res["fp_rel"] < ADVANTAGE_FP_RTOL or sorted(arms) != sorted(want) \
+            or any(a["final"] is None for a in arms.values()):
+        raise AssertionError(f"advantage_demo: {res}")
+    if any(not isinstance(arms[t]["selection"], dict)
+           or not arms[t]["selection"] for t in ADVANTAGE_SELECTING):
+        raise AssertionError(f"advantage_demo: selection vs planted {arms}")
+    if agg.returncode != 0 or "| arm | top-1 mean" not in agg.stdout:
+        raise AssertionError("aggregate_advantage.py failed")
+    if not launches.get("fake_quant_act"):
+        raise AssertionError(f"advantage_demo: launches {launches}")
+    phase("advantage_demo", t0)
+    return dict(seconds=secs, fp_rel=res["fp_rel"], arms=arms,
+                launches=launches, aggregate=agg.stdout)
+
+
+def drill_phase(tmp):
+    """Phase 48: scripts.imagenet_drill --quick, its JPEG root in
+    ``tmp``."""
+    t0 = time.perf_counter()
+    with working_dir(tmp):
+        res, launches, secs = _run_script(
+            "imagenet_drill", DRILL_ARGS + ["--root",
+                                            os.path.join(tmp, "drill")])
+    mse = res["golden_logit_mse_on_replay"]
+    print(f"  imagenet_drill: {secs:.2f} s; loaders {res['data_loaders']}; "
+          f"final top-1 {res['final_top1']}, eval-only "
+          f"{res['eval_only_top1']}, replay golden-logit MSE {mse} (gate "
+          f"{DRILL_MSE_GATE:g}); wall {res['wall_s']} s, replay "
+          f"{res['replay_wall_s']} s; launches {launches}", flush=True)
+    if mse is None or not mse <= DRILL_MSE_GATE \
+            or not math.isfinite(res["final_top1"]):
+        raise AssertionError(f"imagenet_drill: {res}")
+    if not launches.get("fake_quant_act"):
+        raise AssertionError(f"imagenet_drill: launches {launches}")
+    phase("imagenet_drill", t0)
+    return dict(seconds=secs, launches=launches,
+                **{k: res[k] for k in ("data_loaders", "final_top1",
+                                       "eval_only_top1",
+                                       "golden_logit_mse_on_replay",
+                                       "wall_s", "replay_wall_s")})
+
+
+def harm_phase(tmp):
+    """Phase 49: scripts.harm_accuracy on the trained MNASNet."""
+    t0 = time.perf_counter()
+    os.symlink(os.path.join(REPO, "trained_mnasnet_synth10.npz"),
+               os.path.join(tmp, "trained_mnasnet_synth10.npz"))
+    with working_dir(tmp):
+        res, launches, secs = _run_script("harm_accuracy", HARM_ARGS)
+    rows = {t: dict(final=_top1(r["final"]),
+                    worst_coarsening=r["worst_coarsening"],
+                    wall_s=r["wall_s"], **r["deploy_check"])
+            for t, r in res.items()}
+    print(f"  harm_accuracy: {secs:.2f} s; {rows}; launches {launches}",
+          flush=True)
+    if sorted(rows) != ["harmonized", "plain"] \
+            or any(r["final"] is None for r in rows.values()):
+        raise AssertionError(f"harm_accuracy: {res}")
+    if not rows["harmonized"]["sum_sites"] >= 1:
+        raise AssertionError(f"harm_accuracy: no sum site {rows}")
+    if any(not abs(r["deploy"] - r["sim"]) <= SCRIPT_DEPLOY_GAP
+           for r in rows.values()):
+        raise AssertionError(f"harm_accuracy: deploy vs sim {rows}")
+    if not (launches.get("dw_conv_int8") and launches.get("int8_conv")):
+        raise AssertionError(f"harm_accuracy: launches {launches}")
+    phase("harm_accuracy", t0)
+    return dict(seconds=secs, rows=rows, launches=launches)
+
+
+def scripts_phases(npz):
+    """Phases 46-49: each script's main in this process, in one temporary
+    working directory. Returns what the result lines report."""
+    import tempfile
+    tmp = tempfile.TemporaryDirectory()
+    out = dict(run_accuracy=run_accuracy_phase(npz, tmp.name),
+               advantage_demo=advantage_phase(tmp.name),
+               imagenet_drill=drill_phase(tmp.name),
+               harm_accuracy=harm_phase(tmp.name))
     tmp.cleanup()
-    return dict(train=tr, train_parity=par, sweep=sw, profiling=prof)
+    return out
 
 
 def main():
@@ -5087,14 +5304,27 @@ def main():
         par = parallel_phases(torch)
 
     # ---- FP training, the sweep and profiling -------------------------
+    tools_tmp = tempfile.TemporaryDirectory()
     with time_limit("training and tools", TOOLS_LIMIT_S):
-        tools = tools_phases(torch, res["sim_ms"])
+        tools, trained_npz = tools_phases(torch, res["sim_ms"],
+                                          tools_tmp.name)
+
+    # ---- the accuracy scripts on the trained weights ------------------
+    with time_limit("accuracy scripts", SCRIPTS_LIMIT_S):
+        scripts = scripts_phases(trained_npz)
+    tools_tmp.cleanup()
     r50_served = r50["served"]
     unfused.update({k: r["unfused"] for k, r in r50_served.items()})
 
     def r50_count(kernel):
         return {k: r["launches"].get(kernel, 0)
                 for k, r in r50_served.items()}
+
+    def script_count(kernel):
+        """The scripts' deploy launches of ``kernel``, where there were
+        any (phases 46 and 49)."""
+        return {f"script_{n}": d["launches"][kernel]
+                for n, d in scripts.items() if d["launches"].get(kernel)}
 
     r50_sim_fq = {k: r["sim_launches"].get("fake_quant_act", 0)
                   + r["sim_launches"].get("fake_quant_weight", 0)
@@ -5242,6 +5472,13 @@ def main():
          # nodes (phase 45, PROFILE_INNER + 1 calls a node)
          "launches_tools": {"sweep": tools["sweep"]["launches"],
                             "layer_timing": tools["profiling"]["launches"]},
+         # each accuracy script's whole run (phases 46-49): its CLI runs
+         # and its sim evaluations
+         "launches_scripts": {n: {"act": d["launches"].get("fake_quant_act",
+                                                           0),
+                                  "weight": d["launches"].get(
+                                      "fake_quant_weight", 0)}
+                              for n, d in scripts.items()},
          "max_abs_err": max(r["err"] for r in fq_rows),
          "ms": per_forward(fq_rows, "ms"),
          "plain_ms": per_forward(fq_rows, "plain_ms"),
@@ -5271,9 +5508,11 @@ def main():
          + method_cli["launches"].get("int8_conv", 0)
          + sum(r["launches"].get("int8_conv", 0)
                for r in mn["served"].values())
-         + sum(r50_count("int8_conv").values()),
+         + sum(r50_count("int8_conv").values())
+         + sum(script_count("int8_conv").values()),
          "launches_by_path": {
              **r50_count("int8_conv"),
+             **script_count("int8_conv"),
              "resnet18_shifted": slaunches["int8_conv"],
              "resnet18": launches["int8_conv"],
              "mobilenetv2": mlaunches["int8_conv"],
@@ -5350,11 +5589,13 @@ def main():
                      "bf16_codes depthwise conv, feature_group_count = C, "
                      "left to XLA)",
          "launches": mn["served"]["plain"]["launches"].get("dw_conv_int8", 0)
-         + mlaunches["dw_conv_int8"],
+         + mlaunches["dw_conv_int8"]
+         + sum(script_count("dw_conv_int8").values()),
          "launches_by_path": {
              **{f"mnasnet_{s}": r["launches"].get("dw_conv_int8", 0)
                 for s, r in mn["served"].items()},
-             "mobilenetv2": mlaunches["dw_conv_int8"]},
+             "mobilenetv2": mlaunches["dw_conv_int8"],
+             **script_count("dw_conv_int8")},
          "max_abs_err": max(r["err"] for r in mn["dw_rows"]),
          **{k: per_dw(mn["dw_rows"], k) for k in (
              "ms", "eager_ms", "sums_ms", "plain_ms", "bound_ms",
@@ -5436,7 +5677,8 @@ def main():
                       "native_loader": native,
                       "resnet50_cli": r50_cli,
                       "parallel": par,
-                      "tools": tools}),
+                      "tools": tools,
+                      "scripts": scripts}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

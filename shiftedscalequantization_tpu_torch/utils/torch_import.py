@@ -5,7 +5,8 @@ Replaces the reference's hubconf downloads (trash/hubconf.py:16-68) with an
 offline converter: given a torch state dict (or a .pth / .pth.tar path) and
 a model's torch_key_map, produce the raw params (conv weights OIHW, linear
 (O, I): torch's own layout, so nothing is transposed) with the BN stats
-attached for fold_bn.
+attached for fold_bn. ``random_state_dict`` draws such a state dict with
+numpy, for checkpoints made without a download.
 """
 from __future__ import annotations
 
@@ -72,3 +73,34 @@ def params_from_state_dict(graph: Graph, key_map: Mapping[str, tuple],
             p["bn"] = bn
         params[u.name] = p
     return params
+
+
+def random_state_dict(graph: Graph, key_map: Mapping[str, tuple], seed=0,
+                      bn_gamma=(0.8, 1.2), bn_beta_std=0.05,
+                      bn_mean_std=0.05, bn_var=(0.8, 1.2)) -> dict:
+    """A torchvision-layout state dict for ``graph`` drawn with numpy
+    (``default_rng(seed)``): He-normal conv and linear weights, zero linear
+    bias; BN weight U(bn_gamma), bias N(0, bn_beta_std), running mean
+    N(0, bn_mean_std), running var U(bn_var), drawn in that order for each
+    unit; and the num_batches_tracked counters the importers ignore."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for u in iter_units(graph):
+        conv, bn = key_map[u.name]
+        shape = (u.out_ch, u.in_ch // u.groups, *u.kernel) \
+            if u.kind == "conv" else (u.out_ch, u.in_ch)
+        fan_in = int(np.prod(shape[1:]))
+        sd[f"{conv}.weight"] = torch.as_tensor(
+            rng.standard_normal(shape, dtype=np.float32)
+            * np.float32(np.sqrt(2.0 / fan_in)))
+        c = u.out_ch
+        if bn is None:
+            sd[f"{conv}.bias"] = torch.zeros(c)
+            continue
+        for name, v in (("weight", rng.uniform(*bn_gamma, c)),
+                        ("bias", rng.normal(0.0, bn_beta_std, c)),
+                        ("running_mean", rng.normal(0.0, bn_mean_std, c)),
+                        ("running_var", rng.uniform(*bn_var, c))):
+            sd[f"{bn}.{name}"] = torch.as_tensor(v.astype(np.float32))
+        sd[f"{bn}.num_batches_tracked"] = torch.tensor(0)
+    return sd

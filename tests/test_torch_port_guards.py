@@ -39,7 +39,9 @@ def test_port_and_smoke_script_import_no_jax():
                 "ops/cuda/dw_conv.py", "parallel/__init__.py",
                 "parallel/mesh.py", "parallel/collectives.py",
                 "parallel/dist.py", "utils/profiling.py",
-                "utils/analysis.py", "utils/sweep.py"):
+                "utils/analysis.py", "utils/sweep.py",
+                "scripts/run_accuracy.py", "scripts/advantage_demo.py",
+                "scripts/imagenet_drill.py", "scripts/harm_accuracy.py"):
         assert PORT / new in files, new
     for path in files:
         for name in _imports(path):
@@ -125,6 +127,22 @@ def test_trainer_and_profiler_without_a_card_raise(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profiling.layer_timing(graph, params, qs,
                                np.zeros((1, 32, 32, 3), np.float32))
+
+
+@pytest.mark.parametrize("name", ["run_accuracy", "advantage_demo",
+                                  "imagenet_drill", "harm_accuracy"])
+def test_scripts_without_a_card_raise(no_card, name, tmp_path, monkeypatch):
+    """Each accuracy script's main runs on the card at its default
+    --platform (cuda) and raises without one before it trains, plants,
+    draws or writes anything."""
+    import importlib
+    mod = importlib.import_module(
+        f"shiftedscalequantization_tpu_torch.scripts.{name}")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--root", str(tmp_path / "drill")]
+                 if name == "imagenet_drill" else [])
+    assert list(tmp_path.iterdir()) == []
 
 
 PARALLEL_ENTRIES = ("init_multihost", "sharded_validate", "sharded_capture",

@@ -25,7 +25,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from shiftedscalequantization_tpu import cli as JCLI
 from shiftedscalequantization_tpu import quantize as JQZ
 from shiftedscalequantization_tpu.data import datasets as JDS
@@ -343,8 +342,7 @@ LAYOUTS = {"flat": lambda sd: sd,
 @pytest.fixture(scope="module")
 def r50_sd():
     graph, km = TZ.build("resnet50", num_classes=1000)
-    return graph, km(graph), chip_smoke.torchvision_state_dict(
-        torch, graph, km(graph))
+    return graph, km(graph), TTI.random_state_dict(graph, km(graph))
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))
@@ -395,7 +393,7 @@ def test_cli_pretrained_pth_tar_matches_jax(tmp_path):
     and the port's CLI runs on it to its initialized checkpoint."""
     graph, km = TZ.build("resnet18", dataset="digits")
     path = str(tmp_path / "r18.pth.tar")
-    sd = chip_smoke.torchvision_state_dict(torch, graph, km(graph), 4)
+    sd = TTI.random_state_dict(graph, km(graph), 4)
     torch.save({"model": sd}, path)
     argv = ["--arch", "resnet18", "--dataset", "digits", "--pretrained",
             path, "--n_bits_w", "4", "--n_bits_a", "8", "--w_scale_method",
